@@ -1,0 +1,88 @@
+"""MemoryArena: the shared memory pool an LSM store draws from.
+
+The paper's architecture (§3) pools write memory and the buffer cache so
+the tuner can move memory to where the workload needs it. ``MemoryArena``
+is that pool as an object: it owns the tunable write-memory size ``x``,
+the clock buffer cache of ``total - x - sim`` pages, the ghost (simulated)
+cache feeding the tuner, the byte-accounted ``Disk`` (and therefore the
+global ``IOStats``), and the *durability plane*: one typed
+``WriteAheadLog`` (the transaction log whose byte offsets are the LSNs)
+and one versioned ``Manifest`` (the durable record of on-disk SSTable
+state, carrying checkpoints). Write-memory resizes are logged as control
+records so crash recovery can re-apply them by value.
+
+This package has no sharded store yet, so an arena serves one store; the
+structure keeps the member list so the sharded plane can share it.
+
+``log_pos`` remains the canonical name for the log's byte position --
+kept as a compat property over ``wal.head_lsn`` (the setter moves the WAL
+head without a payload record; observability-only, used by nothing in the
+engine itself).
+"""
+from __future__ import annotations
+
+from ..durability.manifest import Manifest
+from ..durability.wal import WriteAheadLog
+from ..tuner.simcache import GhostCache
+from .cache import ClockCache, Disk
+
+
+class MemoryArena:
+    """Shared write-memory pool + buffer cache + WAL/manifest for member
+    stores."""
+
+    def __init__(self, cfg, *, wal: WriteAheadLog | None = None,
+                 manifest: Manifest | None = None):
+        self.cfg = cfg
+        self.write_memory_bytes = cfg.write_memory_bytes
+        self.ghost = GhostCache(cfg.sim_cache_bytes // cfg.page_bytes)
+        cache_pages = max(
+            0, (cfg.total_memory_bytes - cfg.write_memory_bytes
+                - cfg.sim_cache_bytes) // cfg.page_bytes)
+        self.cache = ClockCache(cache_pages, on_evict=self.ghost.add_evicted)
+        self.disk = Disk(cfg.page_bytes, self.cache, self.ghost)
+        # Durability plane on the memory medium: adopted or fresh. The
+        # manifest's identity guardrail rejects a config that contradicts
+        # the one the durable state was written under.
+        self.wal = wal if wal is not None else WriteAheadLog()
+        self.manifest = manifest if manifest is not None else Manifest()
+        self.manifest.bind(cfg)
+        self.wal.bind_stats(self.disk.stats)
+        self.members: list = []             # stores drawing from this arena
+
+    def register(self, store) -> int:
+        """Add a member store; returns its index (0 for a standalone
+        store)."""
+        self.members.append(store)
+        return len(self.members) - 1
+
+    @property
+    def stats(self):
+        return self.disk.stats
+
+    @property
+    def log_pos(self) -> int:
+        """Transaction-log byte offset (compat name for ``wal.head_lsn``)."""
+        return self.wal.head_lsn
+
+    @log_pos.setter
+    def log_pos(self, v: int) -> None:
+        # Compat shim for the pre-WAL bare counter; see WriteAheadLog.set_head.
+        self.wal.set_head(v)
+
+    def used_bytes(self) -> int:
+        """Write memory held across every member store."""
+        return sum(s.write_memory_used() for s in self.members)
+
+    def set_write_memory(self, x: int) -> None:
+        """Apply a new write-memory size (the tuner's actuator): the
+        buffer cache gives up (or reclaims) the complementary pages. The
+        applied value is WAL-logged so recovery replays the decision."""
+        cfg = self.cfg
+        x = int(min(max(x, 1 << 20), cfg.total_memory_bytes
+                    - cfg.sim_cache_bytes - (1 << 20)))
+        self.write_memory_bytes = x
+        pages = max(0, (cfg.total_memory_bytes - x - cfg.sim_cache_bytes)
+                    // cfg.page_bytes)
+        self.cache.resize(pages)
+        self.wal.append_set_write_memory(x)

@@ -1,0 +1,58 @@
+"""The port stands alone: importing every module of ``repro_torch`` loads
+neither jax nor any module of the reference package ``repro``, and no
+source file of the port (or ``chip_smoke.py``) imports them."""
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_import_loads_no_jax_and_no_reference_module():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, timeout=240,
+                         check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["bad"] == []
+    for mod in ("repro_torch.core.engine.torch_backend",
+                "repro_torch.core.service.service",
+                "repro_torch.kernels.merge.merge",
+                "repro_torch.kernels.bloom.bloom",
+                "repro_torch.kernels.build"):
+        assert mod in got["modules"]
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|"
+    r"from\s+repro(\.|\s))", re.M)
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_source_imports_neither_jax_nor_reference(path):
+    text = (ROOT / path).read_text()
+    assert not _FORBIDDEN.search(text), path
