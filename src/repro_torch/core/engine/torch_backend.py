@@ -12,23 +12,25 @@ W])``. Keys and values are the engine's own int64 throughout. On a CPU
 device every kernel wrapper runs its plain PyTorch version; that is the
 only way a plain version is reached.
 
-``launches`` counts kernel launches per kernel (plain integers). The
-fused read path (``prepare_tier``/``lookup_fused``/``prepare_store``/
-``lookup_store_fused``) needs the device page pool, which this package
-does not have yet: those methods raise.
+``launches`` is the kernel wrappers' own launch count (plain integers,
+one per kernel, for the whole process). The fused read path
+(``prepare_tier``/``lookup_fused``/``prepare_store``/``lookup_store_fused``)
+needs the device page pool, which this package does not have yet: those
+methods raise.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ...kernels._launch import LAUNCHES
 from ...kernels.bloom import bloom as bloom_k
 from ...kernels.merge import merge as merge_k
 from .backend import (BLOOM_K_HASHES, ExecutionBackend, bloom_sizing,
                       register_backend)
 from .numpy_backend import ingest_order
 
-KERNELS = ("merge_pair", "bloom_build", "bloom_probe")
+KERNELS = tuple(LAUNCHES)
 _NO_FUSED = ("the fused read path needs the device page pool, which is "
              "not ported yet; keep device_pool_bytes=0")
 
@@ -53,7 +55,7 @@ class TorchBackend(ExecutionBackend):
     def __init__(self, *, device="cuda", k_hashes: int = BLOOM_K_HASHES):
         self.device = resolve_device(device)
         self.k_hashes = k_hashes
-        self.launches = dict.fromkeys(KERNELS, 0)
+        self.launches = LAUNCHES
 
     def _to(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(
@@ -69,8 +71,7 @@ class TorchBackend(ExecutionBackend):
             return runs[0]
         keys = self._to(np.concatenate([k for k, _ in runs]))
         vals = self._to(np.concatenate([v for _, v in runs]))
-        keys, vals = merge_k.merge_runs(keys, vals, [len(k) for k, _ in runs],
-                                        launches=self.launches)
+        keys, vals = merge_k.merge_runs(keys, vals, [len(k) for k, _ in runs])
         return keys.cpu().numpy(), vals.cpu().numpy()
 
     # -- write ingest --------------------------------------------------------
@@ -84,16 +85,14 @@ class TorchBackend(ExecutionBackend):
         if len(keys) == 0:
             return keys, vals, np.empty(0, np.int64)
         order = ingest_order(keys)
-        ks, src = merge_k.ingest_run(self._to(keys[order]), self._to(order),
-                                     launches=self.launches)
+        ks, src = merge_k.ingest_run(self._to(keys[order]), self._to(order))
         src = src.cpu().numpy()
         return ks.cpu().numpy(), vals[src], src
 
     # -- bloom ---------------------------------------------------------------
     def bloom_build(self, keys):
         _, n_slots = bloom_sizing(len(keys))
-        filt = bloom_k.bloom_build(self._to(keys), n_slots, self.k_hashes,
-                                   launches=self.launches)
+        filt = bloom_k.bloom_build(self._to(keys), n_slots, self.k_hashes)
         return ("torch", filt)
 
     def bloom_probe(self, filt, keys):
@@ -102,8 +101,8 @@ class TorchBackend(ExecutionBackend):
             raise TypeError(f"filter built by backend {kind!r}, not 'torch'")
         if len(keys) == 0:
             return np.zeros(0, bool)
-        return bloom_k.bloom_probe(f, self._to(keys), self.k_hashes,
-                                   launches=self.launches).cpu().numpy()
+        hit = bloom_k.bloom_probe(f, self._to(keys), self.k_hashes)
+        return hit.cpu().numpy()
 
     # -- point lookups -------------------------------------------------------
     def lookup_batch(self, sorted_keys, queries):

@@ -1,7 +1,12 @@
-"""Argument checks shared by the kernel wrappers."""
+"""Argument checks and launch counts shared by the kernel wrappers."""
 from __future__ import annotations
 
 import torch
+
+# Kernel launches in this process, one plain integer per kernel. A wrapper
+# adds one where it launches its kernel and nowhere else, so a run that
+# zeroes these first shows which kernels its path went through.
+LAUNCHES = {"merge_pair": 0, "bloom_build": 0, "bloom_probe": 0}
 
 
 def on_card(*tensors: torch.Tensor) -> bool:

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from .. import build
-from .._launch import expect, on_card, stream_of
+from .._launch import LAUNCHES, expect, on_card, stream_of
 
 C1 = 0x9E3779B1
 C2 = 0x85EBCA77
@@ -62,10 +62,8 @@ def _check_slots(n_slots: int) -> None:
                          f"2**31, got {n_slots}")
 
 
-def bloom_build(keys, n_slots: int, k_hashes: int, *,
-                launches: dict | None = None):
-    """Filter over int64 ``keys``: bool ``[128, n_slots // 128]``.
-    ``launches["bloom_build"]`` counts kernel launches."""
+def bloom_build(keys, n_slots: int, k_hashes: int):
+    """Filter over int64 ``keys``: bool ``[128, n_slots // 128]``."""
     expect(keys, "keys", torch.int64)
     _check_slots(n_slots)
     if not on_card(keys):
@@ -78,15 +76,13 @@ def bloom_build(keys, n_slots: int, k_hashes: int, *,
                                      k_hashes, filt.data_ptr(),
                                      stream_of(keys))
     build.check(rc, "bloom_build")
-    if launches is not None:
-        launches["bloom_build"] += 1
+    LAUNCHES["bloom_build"] += 1
     return filt
 
 
-def bloom_probe(filt, keys, k_hashes: int, *, launches: dict | None = None):
+def bloom_probe(filt, keys, k_hashes: int):
     """Membership of int64 ``keys`` in ``filt`` (bool ``[128, W]``): True
-    where all ``k_hashes`` slots are set. ``launches["bloom_probe"]``
-    counts kernel launches."""
+    where all ``k_hashes`` slots are set."""
     expect(filt, "filt", torch.bool, ndim=2)
     expect(keys, "keys", torch.int64)
     if filt.shape[0] != 128:
@@ -101,6 +97,5 @@ def bloom_probe(filt, keys, k_hashes: int, *, launches: dict | None = None):
                                      k_hashes, keys.data_ptr(), len(keys),
                                      out.data_ptr(), stream_of(keys))
     build.check(rc, "bloom_probe")
-    if launches is not None:
-        launches["bloom_probe"] += 1
+    LAUNCHES["bloom_probe"] += 1
     return out

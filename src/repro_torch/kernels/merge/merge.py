@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from .. import build
-from .._launch import expect, on_card, stream_of
+from .._launch import LAUNCHES, expect, on_card, stream_of
 
 
 def merge_pair_plain(ak, av, bk, bv):
@@ -32,13 +32,12 @@ def merge_pair_plain(ak, av, bk, bv):
     return out_k, out_v, keep
 
 
-def merge_pair(ak, av, bk, bv, *, launches: dict | None = None):
+def merge_pair(ak, av, bk, bv):
     """Merge sorted run A (newer) with sorted run B (older).
 
     Returns ``(keys, vals, keep)`` of length ``len(A) + len(B)``: the
     stable merge, and True where a slot holds the first (newest)
-    occurrence of its key. ``launches["merge_pair"]`` counts kernel
-    launches."""
+    occurrence of its key."""
     for t, name in ((ak, "ak"), (av, "av"), (bk, "bk"), (bv, "bv")):
         expect(t, name, torch.int64)
     if len(ak) != len(av) or len(bk) != len(bv):
@@ -57,12 +56,11 @@ def merge_pair(ak, av, bk, bv, *, launches: dict | None = None):
         len(bk), out_k.data_ptr(), out_v.data_ptr(), keep.data_ptr(),
         stream_of(ak))
     build.check(rc, "merge_pair")
-    if launches is not None:
-        launches["merge_pair"] += 1
+    LAUNCHES["merge_pair"] += 1
     return out_k, out_v, keep
 
 
-def merge_runs(keys, vals, lens, *, launches: dict | None = None):
+def merge_runs(keys, vals, lens):
     """Fold k sorted runs, stored back to back in ``keys``/``vals`` with
     run lengths ``lens`` (newest run first), into one sorted unique run:
     newest wins. Returns ``(keys, vals)`` on the input's device."""
@@ -72,12 +70,12 @@ def merge_runs(keys, vals, lens, *, launches: dict | None = None):
     ka, va = keys[:offs[1]], vals[:offs[1]]
     for i in range(1, len(lens)):
         kb, vb = keys[offs[i]:offs[i + 1]], vals[offs[i]:offs[i + 1]]
-        mk, mv, keep = merge_pair(ka, va, kb, vb, launches=launches)
+        mk, mv, keep = merge_pair(ka, va, kb, vb)
         ka, va = mk[keep], mv[keep]
     return ka, va
 
 
-def ingest_run(ordered_keys, positions, *, launches: dict | None = None):
+def ingest_run(ordered_keys, positions):
     """Dedup a write batch the host put in ingest order (ascending keys,
     newest occurrence first among equals; ``positions`` are the batch
     positions in that order). The batch is split at its midpoint and the
@@ -87,6 +85,5 @@ def ingest_run(ordered_keys, positions, *, launches: dict | None = None):
     """
     h = len(ordered_keys) // 2
     mk, mp, keep = merge_pair(ordered_keys[:h], positions[:h],
-                              ordered_keys[h:], positions[h:],
-                              launches=launches)
+                              ordered_keys[h:], positions[h:])
     return mk[keep], mp[keep]

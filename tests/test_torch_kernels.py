@@ -18,6 +18,7 @@ from repro.kernels.merge import ops as merge_ops  # noqa: E402
 from repro_torch.core.engine.backend import bloom_sizing  # noqa: E402
 from repro_torch.core.engine.torch_backend import TorchBackend  # noqa: E402
 from repro_torch.core.lsm.sstable import TOMBSTONE  # noqa: E402
+from repro_torch.kernels._launch import LAUNCHES  # noqa: E402
 from repro_torch.kernels.bloom import bloom as bloom_k  # noqa: E402
 from repro_torch.kernels.merge import merge as merge_k  # noqa: E402
 
@@ -219,13 +220,15 @@ def test_property_backend_matches_numpy(runs, batch):
 
 
 # --------------------------- wrapper contract --------------------------------
-def test_wrappers_take_the_plain_version_only_on_cpu():
-    launches = {"merge_pair": 0, "bloom_build": 0, "bloom_probe": 0}
+def test_wrappers_take_the_plain_version_only_on_cpu(tb):
+    before = dict(LAUNCHES)
     k = torch.arange(5, dtype=torch.int64)
-    merge_k.merge_pair(k, k, k, k, launches=launches)
-    f = bloom_k.bloom_build(k, 1280, 7, launches=launches)
-    bloom_k.bloom_probe(f, k, 7, launches=launches)
-    assert launches == {"merge_pair": 0, "bloom_build": 0, "bloom_probe": 0}
+    merge_k.merge_pair(k, k, k, k)
+    f = bloom_k.bloom_build(k, 1280, 7)
+    bloom_k.bloom_probe(f, k, 7)
+    assert LAUNCHES == before                  # the plain versions ran
+    assert tb.launches is LAUNCHES and set(LAUNCHES) == {
+        "merge_pair", "bloom_build", "bloom_probe"}
     m = torch.empty(5, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         merge_k.merge_pair(m, m, m, m)
