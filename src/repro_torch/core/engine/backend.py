@@ -13,11 +13,11 @@ A backend supplies the engine's data-parallel primitives:
     or a whole store. This package does not run it yet: the store rejects
     a device page pool, and the torch backend raises on these four.
 
-``NumpyBackend`` carries the reference semantics on the host;
-``TorchBackend`` routes the same primitives through hand-written CUDA
-kernels (their plain PyTorch versions on a CPU device). Both use the
-*same* Bloom geometry (hash family, slot count, size bucketing) so their
-probe results -- including false positives -- are bit-identical.
+``TorchBackend`` routes these primitives through hand-written CUDA
+kernels (their plain PyTorch versions on a CPU device). It uses the
+reference's Bloom geometry (hash family, slot count, size bucketing), so
+its probe results -- false positives included -- are bit-identical to the
+reference's.
 
 Selection: ``get_backend(name, device)`` takes the explicit ``name``
 (``StoreConfig.backend``) and defaults to ``"torch"``; no environment
@@ -39,9 +39,8 @@ BLOOM_K_HASHES = 7
 def bloom_sizing(n_keys: int, bits_per_key: int = BLOOM_BITS_PER_KEY):
     """(padded_key_count, n_slots) for a filter over ``n_keys`` keys.
 
-    Both backends size filters from the *bucketed* key count so a filter
-    built by one backend has the same geometry (and false-positive set) as
-    one built by the other.
+    Filters are sized from the *bucketed* key count, as in the reference,
+    so a filter has the reference's geometry (and false-positive set).
     """
     n_pad = next_pow2(max(1, n_keys), lo=256)
     return n_pad, slots_for(n_pad, bits_per_key)
@@ -149,8 +148,8 @@ class StoreLookup:
 def assign_bounds(starts, ends, qkeys):
     """Array-level twin of ``sstable.assign_queries``: map each query to
     the covering table of a disjoint, min_key-sorted tier described by its
-    bound arrays. Shared by both backends' fused paths so assignment is
-    bit-identical to the staged probe."""
+    bound arrays. The fused paths use it so assignment is bit-identical to
+    the staged probe."""
     ti = np.searchsorted(starts, qkeys, side="right") - 1
     ok = ti >= 0
     ti = np.clip(ti, 0, len(starts) - 1)

@@ -1,18 +1,14 @@
-"""Host execution backend and host helpers: pure numpy.
+"""Host helpers of the engine: pure numpy.
 
 Carries the engine's original semantics (the k-way merge extracted from
-``sstable.merge_runs``) plus a real double-hashed Bloom filter (Knuth
-multipliers, int32 wraparound, floor-mod slots). The torch backend's
-kernels reproduce this hash math bit-for-bit. ``NumpyBackend`` is
-registered as ``"numpy"`` for callers that ask for it by name; the
-default backend is ``"torch"``.
+``sstable.merge_runs``), the canonical ingest order of a write batch, the
+double-hashed Bloom slot math (Knuth multipliers, int32 wraparound,
+floor-mod slots) that the torch backend's kernels reproduce bit for bit,
+and the ranged lower-bound search.
 """
 from __future__ import annotations
 
 import numpy as np
-
-from .backend import (BLOOM_K_HASHES, ExecutionBackend, bloom_sizing,
-                      register_backend)
 
 # Golden-ratio multipliers as int32.
 C1 = np.int32(0x9E3779B1 - 2**32)
@@ -44,8 +40,8 @@ def ingest_order(keys) -> np.ndarray:
     """Canonical ingest ordering of a write batch: positions sorted by key,
     newest (highest batch position) first among equal keys.
 
-    Shared by both backends so the pre-kernel ordering -- and therefore
-    which duplicate survives -- is identical everywhere.
+    The torch backend orders a batch with it before the merge kernel, so
+    which duplicate survives is the reference's.
     """
     n = len(keys)
     rev = np.argsort(keys[::-1], kind="stable")
@@ -84,54 +80,3 @@ def lower_bound_ranged(concat_keys, lo, hi, queries):
         lo = np.where(open_ & less, mid + 1, lo)
         hi = np.where(open_ & ~less, mid, hi)
     return lo
-
-
-class NumpyBackend(ExecutionBackend):
-    name = "numpy"
-
-    def __init__(self, *, k_hashes: int = BLOOM_K_HASHES, device=None):
-        # ``device`` is accepted for the registry's signature; this backend
-        # runs on the host whatever the store's device.
-        self.k_hashes = k_hashes
-
-    def merge_runs(self, runs):
-        return merge_runs_numpy(runs)
-
-    def ingest_run(self, keys, vals):
-        keys = np.asarray(keys, np.int64)
-        vals = np.asarray(vals, np.int64)
-        n = len(keys)
-        if n == 0:
-            return keys, vals, np.empty(0, np.int64)
-        src = ingest_order(keys)
-        ks = keys[src]
-        keep = np.ones(n, bool)
-        keep[1:] = ks[1:] != ks[:-1]        # newest-first: keep the first
-        src = src[keep]
-        return ks[keep], vals[src], src
-
-    def bloom_build(self, keys):
-        # Membership bits only (bool, not counts): filters are cached per
-        # SSTable for the table's lifetime, so resident size matters.
-        _, n_slots = bloom_sizing(len(keys))
-        slots = _bloom_slots(keys, n_slots, self.k_hashes).reshape(-1)
-        filt = np.zeros(n_slots, bool)
-        filt[slots] = True
-        return filt
-
-    def bloom_probe(self, filt, keys):
-        if len(keys) == 0:
-            return np.zeros(0, bool)
-        slots = _bloom_slots(keys, filt.shape[0], self.k_hashes)
-        return filt[slots].all(axis=-1)
-
-    def lookup_batch(self, sorted_keys, queries):
-        pos = np.searchsorted(sorted_keys, queries)
-        inb = pos < len(sorted_keys)
-        found = np.zeros(len(queries), bool)
-        safe = np.minimum(pos, len(sorted_keys) - 1)
-        found[inb] = sorted_keys[safe[inb]] == np.asarray(queries)[inb]
-        return pos.astype(np.int64), found
-
-
-register_backend("numpy", NumpyBackend)

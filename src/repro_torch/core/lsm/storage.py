@@ -102,8 +102,9 @@ class StoreConfig:
     static_num_levels: int | None = None
     forced_flush_kind: str | None = None       # for the Fig. 9 ablation
     accordion_pipeline: int = 4
-    # Execution backend for merges/Bloom/batched lookups ("torch" |
-    # "numpy"); None means "torch". No environment variable is read.
+    # Execution backend for merges/Bloom/batched lookups: "torch", the
+    # only one registered; None means "torch". No environment variable is
+    # read.
     backend: str | None = None
     # Device the backend runs on: "cuda" (the default; opening a store
     # without a GPU raises) or "cpu" (the kernels' plain versions).

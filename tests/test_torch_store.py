@@ -17,7 +17,8 @@ import repro_torch.core as port  # noqa: E402
 from repro.core.durability.wal import encode_record as ref_encode  # noqa: E402
 from repro.core.lsm.sstable import reset_sst_ids as ref_reset  # noqa: E402
 from repro_torch.core.durability.wal import encode_record as port_encode  # noqa: E402
-from repro_torch.core.engine import get_backend  # noqa: E402
+from repro_torch.core.engine import (available_backends,  # noqa: E402
+                                     get_backend)
 from repro_torch.core.lsm.sstable import reset_sst_ids as port_reset  # noqa: E402
 
 KB, MB = 1 << 10, 1 << 20
@@ -154,7 +155,7 @@ def test_cuda_without_a_gpu_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="is_available"):
         port.StorageService.open(port.StoreConfig())
     with pytest.raises(RuntimeError, match="is_available"):
-        port.StorageService.open(port.StoreConfig(backend="numpy"))
+        port.StorageService.open(port.StoreConfig(backend="torch"))
 
 
 def test_backend_defaults_to_torch_and_ignores_env(monkeypatch):
@@ -163,6 +164,9 @@ def test_backend_defaults_to_torch_and_ignores_env(monkeypatch):
     svc = port.StorageService.open(port.StoreConfig(device="cpu"))
     assert svc.store.backend.name == "torch"
     assert str(svc.store.backend.device) == "cpu"
-    assert get_backend("numpy", "cpu").name == "numpy"
-    with pytest.raises(ValueError, match="unknown LSM backend"):
-        get_backend("pallas", "cpu")
+    assert available_backends() == ("torch",)
+    for name in ("numpy", "pallas"):
+        with pytest.raises(ValueError, match="unknown LSM backend"):
+            get_backend(name, "cpu")
+        with pytest.raises(ValueError, match="unknown backend"):
+            port.StoreConfig(device="cpu", backend=name).validate()
