@@ -6,31 +6,46 @@
 1. Prints the card's name and power limit and builds the CUDA kernels
    from ``src/repro_torch/csrc``.
 2. Kernel phase: holds each kernel (K1 merge_pair, K2 bloom_build, K5
-   bloom_probe) against its plain PyTorch version on the card, with exact
-   integer equality, at the main path's shapes, and times kernel, plain
-   version and a library yardstick with CUDA events.
-3. Service phase: ``StorageService`` at the paper's geometry (StoreConfig
-   defaults: 16 KB pages, 1 KB entries, 512 MB memory, 128 MB write
-   memory), partitioned memory component, OPT flush policy, two trees with
-   90/10 write skew; the log cap is raised so that no log-triggered flush
-   runs (see ``SERVICE_MAX_LOG_BYTES``). Loads 2**20 distinct keys in Put
-   batches of 4096, then runs 256 YCSB-A submits (2048 Gets + 2048 Puts,
-   zipfian 0.99, plus 64 Deletes and 16 Scans of 100). Every Get and Scan
-   is checked against a dict oracle, and every kernel must have launched
-   in this phase (the wrappers' launch counts are zeroed just before it).
-4. Card-vs-CPU phase: one seeded stream of about 60k operations on a small
+   bloom_probe, K4 probe_tier, K3 probe_store) against its plain PyTorch
+   version on the card, with exact integer equality, at the main path's
+   shapes (K4 on a tier of 512 tables of 2048 keys, K3 on a store of six
+   tiers and 512 tables; 4096 queries, half present), and times kernel,
+   plain version and a library yardstick with CUDA events.
+3. Staged service phase: ``StorageService`` at the paper's geometry
+   (StoreConfig defaults: 16 KB pages, 1 KB entries, 512 MB memory, 128 MB
+   write memory, device pool off), partitioned memory component, OPT
+   flush policy, two trees with 90/10 write skew; the log cap is raised so
+   that no log-triggered flush runs (see ``SERVICE_MAX_LOG_BYTES``). Loads
+   2**20 distinct keys in Put batches of 4096, then runs 256 YCSB-A
+   submits (2048 Gets + 2048 Puts, zipfian 0.99, plus 64 Deletes and 16
+   Scans of 100). Every Get and Scan is checked against a dict oracle,
+   and K1, K2 and K5 must have launched in this phase (the wrappers'
+   launch counts are zeroed just before it).
+4. Pool service phase: the same stream with a 2 GiB device page pool and
+   store-scope fused reads, then a read-only tail of 32 submits of 4096
+   zipfian Gets (YCSB C). Every Get, Scan, IOStats counter (but the
+   ``fused_*`` ones) and buffer-cache count of the mixed part must equal
+   the staged phase's; K3 and K4 must have launched, and the tail must
+   have been served by the one-launch store path. (K5 does not run here:
+   a store-view miss admits every page of the tree before the per-tier
+   loop.)
+5. Card-vs-CPU phase: one seeded stream of about 60k operations on a small
    store with a 192 KB log cap, replayed with device="cuda" and
-   device="cpu": fingerprint, every result, IOStats and the WAL bytes must
-   be identical, and both replays must run log-triggered flushes.
+   device="cpu", with the pool off, then on (32 MB) in each fused scope:
+   fingerprint, every result, IOStats, the WAL bytes and the pool's
+   counters must be identical, every replay must run log-triggered
+   flushes, and the card's replays must launch the kernels of their path
+   (K5 with the pool on: the tier-scope replay's cold tiers).
 
 Prints JSON lines; the ``kernels`` line lists each kernel with its launch
-count on the service phase, its time, its bound and its yardsticks. The
-last line is ``{"ok": true, "device": {...}}``. Exits non-zero without a
-GPU, and when any phase fails.
+count on its service phase (K3 and K4: the pool phase), its time, its
+bound and its yardsticks. The last line is ``{"ok": true, "device":
+{...}}``. Exits non-zero without a GPU, and when any phase fails.
 """
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import os
 import subprocess
@@ -46,11 +61,15 @@ import torch  # noqa: E402
 from repro_torch.core import (Delete, Get, Put, Scan,  # noqa: E402
                               StorageService, StoreConfig)
 from repro_torch.core.durability.wal import encode_record  # noqa: E402
-from repro_torch.core.engine.backend import bloom_sizing  # noqa: E402
-from repro_torch.core.lsm.sstable import TOMBSTONE, reset_sst_ids  # noqa: E402
+from repro_torch.core.engine.backend import (  # noqa: E402
+    assign_bounds, bloom_sizing)
+from repro_torch.core.engine.torch_backend import TorchBackend  # noqa: E402
+from repro_torch.core.lsm.sstable import (TOMBSTONE,  # noqa: E402
+                                          partition_run, reset_sst_ids)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels._launch import LAUNCHES  # noqa: E402
 from repro_torch.kernels.bloom import bloom as bloom_k  # noqa: E402
+from repro_torch.kernels.lookup import lookup as lookup_k  # noqa: E402
 from repro_torch.kernels.merge import merge as merge_k  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
@@ -75,7 +94,14 @@ SOURCES = {
                     "src/repro/kernels/bloom/bloom.py:64"),
     "bloom_probe": ("src/repro_torch/csrc/bloom.cu",
                     "src/repro/kernels/bloom/bloom.py:212"),
+    "probe_tier": ("src/repro_torch/csrc/lookup.cu",
+                   "src/repro/kernels/bloom/bloom.py:118"),
+    "probe_store": ("src/repro_torch/csrc/lookup.cu",
+                    "src/repro/kernels/bloom/bloom.py:179"),
 }
+# The pool service phase: a device page pool of 2 GiB of logical 16 KB
+# pages (131,072), room for every disk table of the 2**20-key store.
+POOL_BYTES = 2 << 30
 
 
 def emit(obj) -> None:
@@ -158,8 +184,84 @@ def _max_abs_err(xs, ys) -> int:
     return err
 
 
+def _lookup_tiers(rng, sizes, table_keys: int):
+    """Newest-first lookup tiers of ``sizes[r]`` tables of ``table_keys``
+    int64 keys (beyond int32), drawn from one key space so that newer
+    tiers shadow part of the older ones; the newest tier also holds a
+    negative key, 2**31 + 5 and ``TOMBSTONE``."""
+    universe = _key_of(np.arange(4 * sum(sizes) * table_keys))
+    tiers = []
+    for r, n in enumerate(sizes):
+        k = rng.choice(universe, n * table_keys, replace=False)
+        if r == 0:
+            k[:3] = [-7, 2**31 + 5, TOMBSTONE]
+        k = np.unique(k)
+        v = rng.integers(0, 2**62, len(k))
+        v[::97] = TOMBSTONE
+        tiers.append(partition_run(k, v, 0, 0, 1024, 16 * KB,
+                                   table_keys * 1024))
+    return tiers
+
+
+def _lookup_queries(rng, tables, n_queries: int):
+    """Half present keys of ``tables``, half keys outside the key space
+    (misses, Bloom false positives and keys beyond every table)."""
+    present = rng.choice(np.concatenate([t.keys for t in tables]),
+                         n_queries // 2)
+    absent = _key_of(rng.integers(1 << 30, 1 << 31,
+                                  n_queries - n_queries // 2))
+    return np.concatenate([present, absent]).astype(np.int64)
+
+
+def check_lookup(dev, *, tier_tables: int, table_keys: int, store_sizes,
+                 n_queries: int, seed: int = 0) -> dict:
+    """Hold K4 (``probe_tier``) and K3 (``probe_store``) against their plain
+    versions on views built by ``TorchBackend`` on ``dev``: one tier of
+    ``tier_tables`` tables, and a store of ``len(store_sizes)`` tiers."""
+    rng = np.random.default_rng(seed)
+    tb = TorchBackend(device=dev)
+    bloom = lambda s: tb.bloom_build(s.keys)  # noqa: E731
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(dev)  # noqa: E731
+    reset_sst_ids()
+    tier = _lookup_tiers(rng, [tier_tables], table_keys)[0]
+    view = tb.prepare_tier(tier, bloom)
+    q = _lookup_queries(rng, tier, n_queries)
+    ti, _ = assign_bounds(view.starts, view.ends, q)
+    args = (view.payload, T(q), T(ti), K_HASHES)
+    out = lookup_k.probe_tier(*args)
+    err = {"probe_tier": _max_abs_err([out],
+                                      [lookup_k.probe_tier_plain(*args)])}
+    if err["probe_tier"] or not bool(out[2, : n_queries // 2].all()):
+        raise AssertionError("probe_tier differs or missed a present key")
+    timed = {"probe_tier": (args, view.lens[ti])}
+    tiers = _lookup_tiers(rng, store_sizes, table_keys)
+    sview = tb.prepare_store(tiers, bloom)
+    q = _lookup_queries(rng, [t for tr in tiers for t in tr], n_queries)
+    ti = np.stack([assign_bounds(sview.tier_starts[r], sview.tier_ends[r],
+                                 q)[0] for r in range(len(tiers))])
+    p = sview.payload
+    args = (p, p["t_off"], T(q), T(ti), K_HASHES)
+    out = lookup_k.probe_store(*args)
+    err["probe_store"] = _max_abs_err([out],
+                                      [lookup_k.probe_store_plain(*args)])
+    win = out[-1]
+    if err["probe_store"] or not bool((win[: n_queries // 2] >= 0).all()) \
+            or not bool((win > 0).any()):
+        raise AssertionError("probe_store differs or missed a present key")
+    lens = np.stack([sview.tier_lens[r][ti[r]] for r in range(len(tiers))])
+    timed["probe_store"] = (args, lens)
+    return {"err": err, "timed": timed,
+            "view_bytes": {"probe_tier": _view_bytes(view),
+                           "probe_store": _view_bytes(sview)}}
+
+
+def _view_bytes(view) -> int:
+    """Device bytes held by a prepared view's tensors."""
+    return sum(t.nbytes for t in view.payload.values())
+
+
 def check_kernels(dev, *, merge_shapes, ingest_n: int, sst_keys: int,
-                  n_queries: int, seed: int = 0) -> dict:
+                  n_queries: int, lookup_kw: dict, seed: int = 0) -> dict:
     """Hold every kernel against its plain version on ``dev`` at the main
     path's shapes; raises on any difference. Returns the inputs of the
     timed shape of each kernel and the error seen."""
@@ -205,7 +307,10 @@ def check_kernels(dev, *, merge_shapes, ingest_n: int, sst_keys: int,
         raise AssertionError("bloom_probe differs or gave a false negative")
     timed["bloom_build"] = (sk, n_slots)
     timed["bloom_probe"] = (f, q)
-    return {"err": err, "timed": timed}
+    lk = check_lookup(dev, n_queries=n_queries, seed=seed + 1, **lookup_kw)
+    err.update(lk["err"])
+    timed.update(lk["timed"])
+    return {"err": err, "timed": timed, "view_bytes": lk["view_bytes"]}
 
 
 def time_kernels(timed: dict) -> dict:
@@ -229,12 +334,15 @@ def time_kernels(timed: dict) -> dict:
     # L2 after its first touch, so what must cross device memory is the
     # keys, the filter once and the probe results.
     sk, n_slots = timed["bloom_build"]
+    bslots = bloom_k.bloom_slots_plain(sk, n_slots, K_HASHES).reshape(-1)
     out["bloom_build"] = {
         "ms": cuda_ms(lambda: bloom_k.bloom_build(sk, n_slots, K_HASHES)),
         "plain_ms": cuda_ms(
             lambda: bloom_k.bloom_build_plain(sk, n_slots, K_HASHES)),
         **bound(len(sk) * 8 + n_slots, len(sk) * K_HASHES),
-        "library_ms": None,
+        "library_ms": cuda_ms(lambda: torch.zeros(
+            n_slots, dtype=torch.bool, device=sk.device).index_fill_(
+                0, bslots, True)),
         "device_ms": kernel_device_ms(
             lambda: bloom_k.bloom_build(sk, n_slots, K_HASHES),
             "bloom_build_kernel"),
@@ -251,21 +359,45 @@ def time_kernels(timed: dict) -> dict:
         "device_ms": kernel_device_ms(
             lambda: bloom_k.bloom_probe(f, q, K_HASHES), "bloom_probe_kernel"),
         "shape": [len(q), f.numel()]}
+    # K4 and K3: the view's keys, values and filters stay in L2 across
+    # calls (printed as view_bytes), so what must cross device memory is
+    # the queries and assigned tables read once and the int64 fields
+    # written once. Operations: k Bloom slots and ceil(log2 len) binary
+    # search steps per (tier, query), len that of the assigned table.
+    for name, kern in (("probe_tier", lookup_k.probe_tier),
+                       ("probe_store", lookup_k.probe_store)):
+        (args, lens), plain = timed[name], getattr(lookup_k, name + "_plain")
+        q, ti = args[-3], args[-2]
+        steps = int(np.ceil(np.log2(np.maximum(lens, 1))).sum())
+        out[name] = {
+            "ms": cuda_ms(lambda: kern(*args)),
+            "plain_ms": cuda_ms(lambda: plain(*args)),
+            **bound(q.nbytes + ti.nbytes + kern(*args).nbytes,
+                    ti.numel() * K_HASHES + steps),
+            "library_ms": None,
+            "device_ms": kernel_device_ms(lambda: kern(*args),
+                                          name + "_kernel"),
+            "shape": list(ti.shape)}
     return out
 
 
-# --------------------------- service phase -----------------------------------
+# --------------------------- service phases ----------------------------------
 PRIMITIVES = ("ingest_run", "merge_runs", "bloom_build", "bloom_probe",
-              "lookup_batch")
+              "lookup_batch", "prepare_tier", "lookup_fused", "prepare_store",
+              "lookup_store_fused")
+# The device pool's residency checks: each walks the page ids of a tier
+# (``acquire``) or of every tier of a tree (``acquire_store``) through the
+# clock when no prepared view is cached, and includes the prepare_* call
+# it makes.
+POOL_CALLS = ("acquire", "acquire_store")
 
 
 @contextlib.contextmanager
-def timed_primitives(backend):
-    """Host seconds and calls spent inside each backend primitive (each
-    call copies to the card, launches, and copies back, so this includes
-    the waits on the device)."""
-    acc = {p: [0, 0.0] for p in PRIMITIVES}
-
+def timed_calls(acc: dict, obj, names):
+    """Calls of, and host seconds inside, the methods ``names`` of ``obj``,
+    added to ``acc[name]`` (a backend primitive copies to the card,
+    launches, and copies back, so this includes the waits on the
+    device)."""
     def wrap(name, fn):
         def timed(*a):
             t = time.perf_counter()
@@ -276,13 +408,14 @@ def timed_primitives(backend):
                 acc[name][1] += time.perf_counter() - t
         return timed
 
-    for p in PRIMITIVES:
-        setattr(backend, p, wrap(p, getattr(backend, p)))
+    for n in names:
+        acc[n] = [0, 0.0]
+        setattr(obj, n, wrap(n, getattr(obj, n)))
     try:
         yield acc
     finally:
-        for p in PRIMITIVES:
-            delattr(backend, p)
+        for n in names:
+            delattr(obj, n)
 
 
 def _key_of(ids):
@@ -312,27 +445,107 @@ def _last_wins(ids, vals):
     return u, vals[::-1][first]
 
 
+class _Window:
+    """One run of submits: host seconds inside ``submit`` for the
+    unprofiled ones, and the device's busy share over the first
+    ``n_profile`` ones (CUDA only), which run under the profiler."""
+
+    def __init__(self, svc, n_profile: int):
+        self.svc, self.n_profile = svc, n_profile
+        self.n = 0
+        self.submit_s = 0.0
+        self.dev: dict = {}
+        self.wall = 0.0
+
+    def submit(self, reqs):
+        self.n += 1
+        if self.n > self.n_profile:
+            t = time.perf_counter()
+            res = self.svc.submit_strict(reqs)
+            self.submit_s += time.perf_counter() - t
+            return res
+        box = []
+        by_name, wall = device_us(
+            lambda: box.append(self.svc.submit_strict(reqs)))
+        for k, v in by_name.items():
+            self.dev[k] = self.dev.get(k, 0.0) + v
+        self.wall += wall
+        return box[0]
+
+    def report(self) -> dict:
+        n_timed = self.n - min(self.n_profile, self.n)
+        top = sorted(self.dev.items(), key=lambda kv: -kv[1])[:8]
+        return {"submits": self.n, "submit_s": self.submit_s,
+                "submits_per_s": (n_timed / self.submit_s
+                                  if self.submit_s else None),
+                "profiled_submits": min(self.n_profile, self.n),
+                "device_busy_share": (sum(self.dev.values()) / self.wall
+                                      if self.wall else None),
+                "device_us_top": [[k[:120], v] for k, v in top]}
+
+
+def _state(svc, prim) -> dict:
+    """Counters of the store at one point of the run: IOStats, the buffer
+    cache, the device pool and the device bytes its live views hold, and
+    the backend primitives' calls and host seconds so far."""
+    pool = svc.store.device_pool
+    return {"iostats": vars(svc.store.disk.stats).copy(),
+            "cache": [svc.store.disk.cache.hits, svc.store.disk.cache.misses],
+            "pool": pool.stats(),
+            "view_bytes": sum(_view_bytes(v) for v in pool._views.values()),
+            "primitives": {p: [c, t] for p, (c, t) in prim.items()}}
+
+
+def _part(before: dict, after: dict) -> dict:
+    """What one part of the run added: primitive calls and seconds and the
+    fused counters; pool state and view bytes as they stand at its end."""
+    st0, st1 = before["iostats"], after["iostats"]
+    return {"primitives": {
+                p: {"calls": c - before["primitives"][p][0],
+                    "s": t - before["primitives"][p][1]}
+                for p, (c, t) in after["primitives"].items()},
+            "fused": {k: st1[k] - st0[k] for k in st1
+                      if k.startswith("fused_")},
+            "pool": after["pool"], "view_bytes": after["view_bytes"]}
+
+
 def run_service(dev, *, n_keys: int, batch: int, n_mixed: int, gets: int,
-                puts: int, deletes: int, scans: int, cfg_kw=None,
-                profile_submits: int = 0, seed: int = 0) -> dict:
-    """Load ``n_keys`` distinct keys, then run ``n_mixed`` mixed submits;
-    every Get and Scan is held against a dict oracle. Returns counts and
-    wall times. The first ``profile_submits`` mixed submits (CUDA only)
-    run under the profiler, which gives the device's busy share."""
+                puts: int, deletes: int, scans: int, n_tail: int = 0,
+                cfg_kw=None, profile_submits: int = 0, seed: int = 0) -> dict:
+    """Load ``n_keys`` distinct keys, run ``n_mixed`` mixed submits, then
+    ``n_tail`` read-only submits of ``2 * gets`` zipfian Gets; every Get
+    and Scan is held against a dict oracle. Returns counts, wall times, a
+    digest of every Get and Scan result of the mixed part, and the
+    store's counters at the end of each part. The first
+    ``profile_submits`` submits of the mixed part and of the tail (CUDA
+    only) run under the profiler, which gives the device's busy share."""
     rng = np.random.default_rng(seed)
     cfg = StoreConfig(scheme="partitioned", flush_policy="opt", device=dev,
                       **(cfg_kw or {}))
     svc = StorageService.open(cfg)
-    with timed_primitives(svc.store.backend) as prim:
-        out = _drive(svc, rng, n_keys=n_keys, batch=batch, n_mixed=n_mixed,
-                     gets=gets, puts=puts, deletes=deletes, scans=scans,
-                     profile_submits=profile_submits)
-    out["primitives"] = {p: {"calls": c, "s": t} for p, (c, t) in prim.items()}
-    return out
+    prim: dict = {}
+    with timed_calls(prim, svc.store.backend, PRIMITIVES), \
+            timed_calls(prim, svc.store.device_pool, POOL_CALLS):
+        return _drive(svc, prim, rng, n_keys=n_keys, batch=batch,
+                      n_mixed=n_mixed, gets=gets, puts=puts, deletes=deletes,
+                      scans=scans, n_tail=n_tail,
+                      profile_submits=profile_submits)
 
 
-def _drive(svc, rng, *, n_keys, batch, n_mixed, gets, puts, deletes, scans,
-           profile_submits):
+def _check_get(g, live, val, ids, what):
+    want_found = live[ids]
+    bad = (g.found != want_found) | (want_found & (g.vals != val[ids]))
+    if bad.any():
+        i = np.flatnonzero(bad)[:5]
+        raise AssertionError(
+            f"Get mismatch in {what}: {int(bad.sum())} keys; ids "
+            f"{ids[i].tolist()} found {g.found[i].tolist()} want "
+            f"{want_found[i].tolist()} vals {g.vals[i].tolist()} want "
+            f"{val[ids[i]].tolist()}")
+
+
+def _drive(svc, prim, rng, *, n_keys, batch, n_mixed, gets, puts, deletes,
+           scans, n_tail, profile_submits):
     trees = ("hot", "cold")
     for t in trees:
         svc.create_tree(t)
@@ -353,9 +566,9 @@ def _drive(svc, rng, *, n_keys, batch, n_mixed, gets, puts, deletes, scans,
     ids = {t: np.concatenate(ids[t]) for t in trees}
     zipf = {t: Zipf(len(ids[t]), rng) for t in trees}
     checked = 0
-    submit_s = 0.0
-    prof_dev: dict = {}
-    prof_wall = 0.0
+    digest = hashlib.sha256()
+    at_load = _state(svc, prim)
+    win = _Window(svc, profile_submits)
     t0 = time.perf_counter()
     for si in range(n_mixed):
         tree = trees[0] if si % 10 else trees[1]
@@ -370,65 +583,76 @@ def _drive(svc, rng, *, n_keys, batch, n_mixed, gets, puts, deletes, scans,
         s_lo = _key_of(s_ids)
         # Gets and Scans are listed first, so their steps run before this
         # submit's writes (the planner runs steps in first-seen order).
-        reqs = ([Get(tree, _key_of(g_ids))]
-                + [Scan(tree, int(lo), 100) for lo in s_lo]
-                + [Put(tree, _key_of(p_ids), p_vals),
-                   Delete(tree, _key_of(d_ids))])
-        if si < profile_submits:
-            box = []
-            by_name, wall = device_us(
-                lambda: box.append(svc.submit_strict(reqs)))
-            res = box[0]
-            for k, v in by_name.items():
-                prof_dev[k] = prof_dev.get(k, 0.0) + v
-            prof_wall += wall
-        else:
-            ts = time.perf_counter()
-            res = svc.submit_strict(reqs)
-            submit_s += time.perf_counter() - ts
+        res = win.submit([Get(tree, _key_of(g_ids))]
+                         + [Scan(tree, int(lo), 100) for lo in s_lo]
+                         + [Put(tree, _key_of(p_ids), p_vals),
+                            Delete(tree, _key_of(d_ids))])
         g = res[0]
-        want_found = live[tree][g_ids]
-        bad = (g.found != want_found) | (want_found & (g.vals != val[tree][g_ids]))
-        if bad.any():
-            i = np.flatnonzero(bad)[:5]
-            raise AssertionError(
-                f"Get mismatch in submit {si} ({tree}): {int(bad.sum())} "
-                f"keys; ids {g_ids[i].tolist()} found {g.found[i].tolist()} "
-                f"want {want_found[i].tolist()} vals {g.vals[i].tolist()} "
-                f"want {val[tree][g_ids[i]].tolist()}")
+        _check_get(g, live[tree], val[tree], g_ids, f"submit {si} ({tree})")
         present = np.sort(_key_of(np.flatnonzero(live[tree])))
         want_scan = (np.searchsorted(present, s_lo + 100)
                      - np.searchsorted(present, s_lo))
         got_scan = np.array([r.count for r in res[1:1 + scans]])
         if not np.array_equal(got_scan, want_scan):
             raise AssertionError(f"Scan mismatch in submit {si}")
+        for a in (g.found, g.vals, got_scan):
+            digest.update(a.tobytes())
         u, uv = _last_wins(p_ids, p_vals)
         val[tree][u] = uv
         live[tree][u] = True
         live[tree][d_ids] = False
         checked += gets + scans
     mixed_s = time.perf_counter() - t0
+    at_mixed = _state(svc, prim)
+    tail = _Window(svc, profile_submits if n_tail else 0)
+    t0 = time.perf_counter()
+    for si in range(n_tail):
+        tree = trees[0] if si % 10 else trees[1]
+        g_ids = ids[tree][zipf[tree](2 * gets)]
+        g = tail.submit([Get(tree, _key_of(g_ids))])[0]
+        _check_get(g, live[tree], val[tree], g_ids, f"tail submit {si}")
+        checked += 2 * gets
+    tail_s = time.perf_counter() - t0
+    at_tail = _state(svc, prim)
     st = svc.stats
     tr = svc.store.trees
-    n_timed = n_mixed - min(profile_submits, n_mixed)
-    top = sorted(prof_dev.items(), key=lambda kv: -kv[1])[:8]
-    return {"load_s": load_s, "mixed_wall_s": mixed_s,
-            "submit_s": submit_s,
-            "submits_per_s": n_timed / submit_s if submit_s else None,
-            "profiled_submits": min(profile_submits, n_mixed),
-            "device_busy_share": (sum(prof_dev.values()) / prof_wall
-                                  if prof_wall else None),
-            "device_us_top": [[k[:120], v] for k, v in top],
-            "reads_checked": checked,
-            "flushes_mem": st.flushes_mem, "flushes_log": st.flushes_log,
-            "pages_flushed": st.pages_flushed,
-            "pages_merge_written": st.pages_merge_written,
-            "disk_levels": {t: tr[t].levels.num_levels for t in trees},
-            "write_stalls": st.write_stalls}
+    out = {"load_s": load_s, "mixed_wall_s": mixed_s,
+           "mixed": {**win.report(), **_part(at_load, at_mixed),
+                     "digest": digest.hexdigest(),
+                     "iostats": at_mixed["iostats"],
+                     "cache": at_mixed["cache"]},
+           "reads_checked": checked,
+           "flushes_mem": st.flushes_mem, "flushes_log": st.flushes_log,
+           "pages_flushed": st.pages_flushed,
+           "pages_merge_written": st.pages_merge_written,
+           "disk_levels": {t: tr[t].levels.num_levels for t in trees},
+           "disk_tables": {t: sum(len(x) for x in tr[t].l0.lookup_tiers()
+                                  + tr[t].levels.lookup_tiers())
+                           for t in trees},
+           "write_stalls": st.write_stalls}
+    if n_tail:
+        out["tail_wall_s"] = tail_s
+        out["tail"] = {**tail.report(), **_part(at_mixed, at_tail)}
+    return out
+
+
+def same_as_staged(staged: dict, pooled: dict) -> None:
+    """The fused path against the staged path over the mixed part: every
+    Get and Scan result, IOStats without the ``fused_*`` counters, and
+    the buffer cache's hits and misses."""
+    a, b = staged["mixed"], pooled["mixed"]
+    io = lambda d: {k: v for k, v in d["iostats"].items()  # noqa: E731
+                    if not k.startswith("fused_")}
+    for what, x, y in (("results", a["digest"], b["digest"]),
+                       ("IOStats", io(a), io(b)),
+                       ("cache hits and misses", a["cache"], b["cache"])):
+        if x != y:
+            raise AssertionError(f"pool phase differs from the staged phase "
+                                 f"in {what}: {x} vs {y}")
 
 
 # --------------------------- card-vs-CPU replay ------------------------------
-def small_config(dev) -> StoreConfig:
+def small_config(dev, **kw) -> StoreConfig:
     """The differential suite's small store, with a log cap small enough
     that log-triggered flushes run."""
     return StoreConfig(
@@ -436,8 +660,7 @@ def small_config(dev) -> StoreConfig:
         sim_cache_bytes=1 * MB, page_bytes=4 * KB, entry_bytes=256,
         active_sstable_bytes=32 * KB, sstable_bytes=64 * KB,
         max_log_bytes=REPLAY_MAX_LOG_BYTES, scheme="partitioned",
-        flush_policy="lsn",
-        device=dev)
+        flush_policy="lsn", device=dev, **kw)
 
 
 def _sst_bits(s):
@@ -459,10 +682,10 @@ def fingerprint(store) -> dict:
     return out
 
 
-def replay(dev, *, n_submits: int, seed: int = 1):
+def replay(dev, *, n_submits: int, seed: int = 1, **cfg_kw):
     """One seeded op stream through a small store on ``dev``."""
     reset_sst_ids()
-    svc = StorageService.open(small_config(dev))
+    svc = StorageService.open(small_config(dev, **cfg_kw))
     for t in ("a", "b"):
         svc.create_tree(t)
     rng = np.random.default_rng(seed)
@@ -487,11 +710,13 @@ def replay(dev, *, n_submits: int, seed: int = 1):
             "iostats": vars(st.disk.stats).copy(),
             "wal": [encode_record(r) for r in st.wal.records()],
             "manifest": [vars(e) for e in st.manifest.edits],
+            "pool": st.device_pool.stats(),
             "flushes_log": svc.stats.flushes_log, "n_ops": n_ops}
 
 
 def compare_replays(a: dict, b: dict) -> None:
-    for k in ("outputs", "fingerprint", "iostats", "wal", "manifest"):
+    for k in ("outputs", "fingerprint", "iostats", "wal", "manifest",
+              "pool"):
         if a[k] != b[k]:
             raise AssertionError(f"card and CPU replays differ in {k}")
 
@@ -514,50 +739,107 @@ def main() -> int:
           "library": os.path.relpath(lib, ROOT)})
 
     # Kernel phase: its launches are comparisons; the counts are zeroed
-    # before the main path below.
+    # before each main path below.
     checked = check_kernels(
         "cuda", merge_shapes=[(2048, 2048), (2048, 20480), (16384, 131072),
                               (131072, 1 << 20), (1 << 20, 1 << 20)],
-        ingest_n=4096, sst_keys=2048, n_queries=4096)
+        ingest_n=4096, sst_keys=2048, n_queries=4096,
+        lookup_kw={"tier_tables": 512, "table_keys": 2048,
+                   "store_sizes": [4, 4, 8, 32, 96, 368]})
     torch.cuda.synchronize()
     timing = time_kernels(checked["timed"])
     emit({"phase": "kernels", "card": card, "max_abs_err": checked["err"],
-          "timing": timing})
+          "view_bytes": checked["view_bytes"], "timing": timing})
 
-    # Service phase: the main path, with every launch count at 0 first.
+    # Staged service phase (device pool off): the default path.
+    service_kw = dict(n_keys=1 << 20, batch=4096, n_mixed=256, gets=2048,
+                      puts=2048, deletes=64, scans=16, profile_submits=8)
     t0 = time.perf_counter()
     reset_sst_ids()
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    svc = run_service("cuda", n_keys=1 << 20, batch=4096, n_mixed=256,
-                      gets=2048, puts=2048, deletes=64, scans=16,
-                      cfg_kw={"max_log_bytes": SERVICE_MAX_LOG_BYTES},
-                      profile_submits=8)
+    staged = run_service("cuda", cfg_kw={
+        "max_log_bytes": SERVICE_MAX_LOG_BYTES}, **service_kw)
     torch.cuda.synchronize()
-    svc["launches"] = dict(LAUNCHES)
-    svc["wall_s"] = time.perf_counter() - t0
-    emit({"phase": "service", "card": card, **svc})
-    missing = [k for k in LAUNCHES if svc["launches"][k] <= 0]
+    staged["launches"] = dict(LAUNCHES)
+    staged["wall_s"] = time.perf_counter() - t0
+    emit({"phase": "service", "card": card, **staged})
+    missing = [k for k in ("merge_pair", "bloom_build", "bloom_probe")
+               if staged["launches"][k] <= 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
+        raise AssertionError(f"kernels never launched on the staged path: "
                              f"{missing}")
 
-    # Card-vs-CPU replay of one seeded stream.
+    # Pool service phase: the same stream with the device page pool on and
+    # the store-scope fused reads, then a read-only tail (YCSB C).
     t0 = time.perf_counter()
-    on_card = replay("cuda", n_submits=190)
-    on_cpu = replay("cpu", n_submits=190)
-    compare_replays(on_card, on_cpu)
-    if not on_card["flushes_log"] > 0 < on_cpu["flushes_log"]:
-        raise AssertionError("the replay ran no log-triggered flush")
-    emit({"phase": "replay", "n_ops": on_card["n_ops"],
-          "flushes_log": [on_card["flushes_log"], on_cpu["flushes_log"]],
-          "wal_records": len(on_card["wal"]),
-          "manifest_edits": len(on_card["manifest"]),
-          "seconds": time.perf_counter() - t0, "identical": True})
+    reset_sst_ids()
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    pooled = run_service("cuda", cfg_kw={
+        "max_log_bytes": SERVICE_MAX_LOG_BYTES,
+        "device_pool_bytes": POOL_BYTES, "fused_scope": "store"},
+        n_tail=32, **service_kw)
+    torch.cuda.synchronize()
+    pooled["launches"] = dict(LAUNCHES)
+    pooled["wall_s"] = time.perf_counter() - t0
+    emit({"phase": "pool_service", "card": card, **pooled})
+    same_as_staged(staged, pooled)
+    # K5 does not run here: a store-view miss admits every page of the
+    # tree, so the per-tier loop that follows finds each tier resident.
+    # The tier-scope replay below holds K5 on the pool path.
+    missing = [k for k in ("probe_store", "probe_tier")
+               if pooled["launches"][k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the pool path: "
+                             f"{missing}")
+    if not pooled["tail"]["pool"]["store_hits"] > \
+            pooled["mixed"]["pool"]["store_hits"]:
+        raise AssertionError("the read-only tail was never served by the "
+                             "one-launch store path")
 
+    # Card-vs-CPU replays of one seeded stream: pool off, then the pool on
+    # in each fused scope, with the kernels each must launch on the card.
+    for scope, pool_bytes, kernels in (
+            (None, 0, ("merge_pair", "bloom_build", "bloom_probe")),
+            ("store", 32 * MB, ("probe_store", "probe_tier")),
+            ("tier", 32 * MB, ("probe_tier", "bloom_probe"))):
+        t0 = time.perf_counter()
+        kw = ({"device_pool_bytes": pool_bytes, "fused_scope": scope}
+              if pool_bytes else {})
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        on_card = replay("cuda", n_submits=190, **kw)
+        torch.cuda.synchronize()
+        launched = dict(LAUNCHES)
+        on_cpu = replay("cpu", n_submits=190, **kw)
+        missing = [k for k in kernels if launched[k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels never launched in the {scope} "
+                                 f"replay: {missing}")
+        compare_replays(on_card, on_cpu)
+        if not on_card["flushes_log"] > 0 < on_cpu["flushes_log"]:
+            raise AssertionError("the replay ran no log-triggered flush")
+        pool = on_card["pool"]
+        if pool_bytes and not (pool["tier_hits"] > 0 and (
+                scope == "tier" or pool["store_hits"] > 0)):
+            raise AssertionError(f"the {scope} replay never took the fused "
+                                 f"path: {pool}")
+        emit({"phase": "replay", "fused_scope": scope,
+              "device_pool_bytes": pool_bytes, "n_ops": on_card["n_ops"],
+              "flushes_log": [on_card["flushes_log"], on_cpu["flushes_log"]],
+              "wal_records": len(on_card["wal"]),
+              "manifest_edits": len(on_card["manifest"]), "pool": pool,
+              "fused_launches": on_card["iostats"]["fused_launches"],
+              "launches": launched,
+              "seconds": time.perf_counter() - t0, "identical": True})
+
+    launches = {**staged["launches"],
+                **{k: pooled["launches"][k]
+                   for k in ("probe_tier", "probe_store")}}
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k][0],
-         "replaces": SOURCES[k][1], "launches": svc["launches"][k],
+         "replaces": SOURCES[k][1], "launches": launches[k],
          "max_abs_err": checked["err"][k], "ms": timing[k]["ms"],
          "plain_ms": timing[k]["plain_ms"], "bound_ms": timing[k]["bound_ms"],
          "bound_by": timing[k]["bound_by"],

@@ -10,8 +10,7 @@ A backend supplies the engine's data-parallel primitives:
   * ``prepare_tier(tables, bloom_fn)`` / ``lookup_fused(view, queries)``
     and ``prepare_store(tiers, bloom_fn)`` / ``lookup_store_fused(view,
     queries)`` -- the device-resident fused read path over a pooled tier
-    or a whole store. This package does not run it yet: the store rejects
-    a device page pool, and the torch backend raises on these four.
+    (one launch per tier) or a whole store (one launch per lookup batch).
 
 ``TorchBackend`` routes these primitives through hand-written CUDA
 kernels (their plain PyTorch versions on a CPU device). It uses the
@@ -53,8 +52,8 @@ class TierView:
 
     The host-side metadata is backend-independent; ``payload`` carries the
     backend's resident representation of the tier's key/val/Bloom pages
-    (numpy concatenations for the reference backend, device arrays for the
-    Pallas backend -- the part a ``DevicePagePool`` keeps HBM-resident).
+    (the torch backend's device tensors, ``kernels.lookup.VIEW_FIELDS``
+    -- the part a ``DevicePagePool`` keeps device-resident).
     """
 
     backend: str

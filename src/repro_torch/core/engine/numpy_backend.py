@@ -3,8 +3,7 @@
 Carries the engine's original semantics (the k-way merge extracted from
 ``sstable.merge_runs``), the canonical ingest order of a write batch, the
 double-hashed Bloom slot math (Knuth multipliers, int32 wraparound,
-floor-mod slots) that the torch backend's kernels reproduce bit for bit,
-and the ranged lower-bound search.
+floor-mod slots) that the torch backend's kernels reproduce bit for bit.
 """
 from __future__ import annotations
 
@@ -58,25 +57,3 @@ def _bloom_slots(keys, n_slots: int, k_hashes: int) -> np.ndarray:
     return (h1.astype(np.int64)[:, None] + j[None, :]
             * h2.astype(np.int64)[:, None]) % n_slots
 
-
-def lower_bound_ranged(concat_keys, lo, hi, queries):
-    """Vectorized per-query lower-bound binary search of ``queries[i]``
-    within ``concat_keys[lo[i]:hi[i]]`` (each slice sorted). Returns the
-    *absolute* insertion positions -- exactly ``lo[i] +
-    searchsorted(concat_keys[lo[i]:hi[i]], queries[i])``.
-
-    The reference semantics of the fused sorted probe."""
-    lo = lo.astype(np.int64).copy()
-    hi = hi.astype(np.int64).copy()
-    n = len(concat_keys)
-    while True:
-        open_ = lo < hi
-        if not open_.any():
-            break
-        mid = (lo + hi) >> 1
-        less = np.zeros(len(queries), bool)
-        idx = np.minimum(mid[open_], max(n - 1, 0))
-        less[open_] = concat_keys[idx] < queries[open_]
-        lo = np.where(open_ & less, mid + 1, lo)
-        hi = np.where(open_ & ~less, mid, hi)
-    return lo

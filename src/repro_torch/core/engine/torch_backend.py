@@ -3,20 +3,20 @@ hand-written CUDA kernels in ``repro_torch.kernels``.
 
   * ``merge_runs`` and ``ingest_run`` -> K1 ``merge_pair``;
   * ``bloom_build`` -> K2, ``bloom_probe`` -> K5;
-  * ``lookup_batch`` -> ``torch.searchsorted`` on the device.
+  * ``lookup_batch`` -> ``torch.searchsorted`` on the device;
+  * ``lookup_fused`` -> K4 ``probe_tier``, ``lookup_store_fused`` -> K3
+    ``probe_store``, over the device-resident views that ``prepare_tier``
+    and ``prepare_store`` build.
 
 Host bookkeeping stays numpy, so each primitive takes and returns numpy
 arrays and moves its operands to ``device`` and back. Bloom filters stay
 on the device for the life of their SSTable, as ``("torch", bool[128,
-W])``. Keys and values are the engine's own int64 throughout. On a CPU
-device every kernel wrapper runs its plain PyTorch version; that is the
-only way a plain version is reached.
+W])``. Keys and values are the engine's own int64 throughout, so no view
+is ever refused. On a CPU device every kernel wrapper runs its plain
+PyTorch version; that is the only way a plain version is reached.
 
 ``launches`` is the kernel wrappers' own launch count (plain integers,
-one per kernel, for the whole process). The fused read path
-(``prepare_tier``/``lookup_fused``/``prepare_store``/``lookup_store_fused``)
-needs the device page pool, which this package does not have yet: those
-methods raise.
+one per kernel, for the whole process).
 """
 from __future__ import annotations
 
@@ -25,14 +25,14 @@ import torch
 
 from ...kernels._launch import LAUNCHES
 from ...kernels.bloom import bloom as bloom_k
+from ...kernels.lookup import lookup as lookup_k
 from ...kernels.merge import merge as merge_k
-from .backend import (BLOOM_K_HASHES, ExecutionBackend, bloom_sizing,
-                      register_backend)
+from .backend import (BLOOM_K_HASHES, ExecutionBackend, FusedLookup,
+                      StoreLookup, StoreView, TierView, assign_bounds,
+                      bloom_sizing, register_backend)
 from .numpy_backend import ingest_order
 
 KERNELS = tuple(LAUNCHES)
-_NO_FUSED = ("the fused read path needs the device page pool, which is "
-             "not ported yet; keep device_pool_bytes=0")
 
 
 def resolve_device(device) -> torch.device:
@@ -118,18 +118,102 @@ class TorchBackend(ExecutionBackend):
         found = (pos < n) & (sk[pos.clamp(max=n - 1)] == qk)
         return pos.cpu().numpy(), found.cpu().numpy()
 
-    # -- fused read path (device page pool: not in this package yet) ---------
+    # -- fused read path over device-resident views --------------------------
+    def _view_payload(self, tables, lens, bloom_fn) -> dict:
+        """Device tensors of a view over ``tables`` (tier-major for a
+        store): the key and value runs concatenated, the filters as one
+        flat bool concatenation (``torch.cat`` of the device-resident
+        filters), and per table its slot offset, slot count, run offset
+        and run length ``lens`` (``kernels.lookup.VIEW_FIELDS``). One
+        host-to-device copy per array, the per-table ones in one."""
+        filts = []
+        for t in tables:
+            kind, f = bloom_fn(t)
+            if kind != "torch":
+                raise TypeError(f"filter built by backend {kind!r}, not "
+                                f"'torch'")
+            filts.append(f.reshape(-1))
+        nslots = np.array([f.numel() for f in filts], np.int64)
+        meta = self._to(np.stack([np.cumsum(nslots) - nslots, nslots,
+                                  np.cumsum(lens) - lens, lens]))
+        return {
+            "keys": self._to(np.concatenate([t.keys for t in tables])),
+            "vals": self._to(np.concatenate([t.vals for t in tables])),
+            "fbits": torch.cat(filts),
+            "f_offs": meta[0], "nslots": meta[1],
+            "offs": meta[2], "lens": meta[3],
+        }
+
     def prepare_tier(self, tables, bloom_fn):
-        raise NotImplementedError(_NO_FUSED)
+        lens = np.array([t.num_entries for t in tables], np.int64)
+        return TierView(
+            backend=self.name,
+            sst_ids=tuple(t.sst_id for t in tables),
+            starts=np.array([t.min_key for t in tables], np.int64),
+            ends=np.array([t.max_key for t in tables], np.int64),
+            offs=np.cumsum(lens) - lens, lens=lens,
+            payload=self._view_payload(tables, lens, bloom_fn))
 
     def lookup_fused(self, view, queries):
-        raise NotImplementedError(_NO_FUSED)
+        """K4: one launch for the whole tier. Assignment stays on the
+        host (``assign_bounds``); queries and assigned tables go to the
+        card in one copy, and the four fields come back in one."""
+        q = np.asarray(queries, np.int64)
+        ti, ok = assign_bounds(view.starts, view.ends, q)
+        qt = self._to(np.stack([q, ti]))
+        out = lookup_k.probe_tier(view.payload, qt[0], qt[1],
+                                  self.k_hashes).cpu().numpy()
+        return FusedLookup(ti=ti, ok=ok, positive=out[0].astype(bool),
+                           pos=out[1], hit=out[2].astype(bool), vals=out[3])
 
     def prepare_store(self, tiers, bloom_fn):
-        raise NotImplementedError(_NO_FUSED)
+        tables = [t for tier in tiers for t in tier]
+        counts = np.array([len(tier) for tier in tiers], np.int64)
+        t_off = np.cumsum(counts) - counts
+        lens = np.array([t.num_entries for t in tables], np.int64)
+        offs = np.cumsum(lens) - lens
+        payload = None
+        if tables:
+            payload = self._view_payload(tables, lens, bloom_fn)
+            payload["t_off"] = self._to(t_off)
+        return StoreView(
+            backend=self.name,
+            key=tuple(tuple(t.sst_id for t in tier) for tier in tiers),
+            tier_starts=tuple(np.array([t.min_key for t in tier], np.int64)
+                              for tier in tiers),
+            tier_ends=tuple(np.array([t.max_key for t in tier], np.int64)
+                            for tier in tiers),
+            tier_offs=tuple(offs[t_off[r]:t_off[r] + counts[r]]
+                            for r in range(len(tiers))),
+            tier_lens=tuple(lens[t_off[r]:t_off[r] + counts[r]]
+                            for r in range(len(tiers))),
+            payload=payload)
 
     def lookup_store_fused(self, view, queries):
-        raise NotImplementedError(_NO_FUSED)
+        """K3: one launch for every tier of the store, newest-wins
+        winner included. ``R == 0`` returns the empty lookup without a
+        launch."""
+        q = np.asarray(queries, np.int64)
+        R, K = view.num_tiers, len(q)
+        if R == 0:
+            return StoreLookup(
+                ti=np.zeros((0, K), np.int64), ok=np.zeros((0, K), bool),
+                positive=np.zeros((0, K), bool),
+                pos=np.zeros((0, K), np.int64), hit=np.zeros((0, K), bool),
+                vals=np.zeros((0, K), np.int64),
+                win=np.full(K, -1, np.int64))
+        ti = np.empty((R, K), np.int64)
+        ok = np.empty((R, K), bool)
+        for r in range(R):
+            ti[r], ok[r] = assign_bounds(view.tier_starts[r],
+                                         view.tier_ends[r], q)
+        qt = self._to(np.concatenate([q[None], ti]))
+        p = view.payload
+        out = lookup_k.probe_store(p, p["t_off"], qt[0], qt[1:],
+                                   self.k_hashes).cpu().numpy()
+        return StoreLookup(ti=ti, ok=ok, positive=out[:R].astype(bool),
+                           pos=out[R:2 * R], hit=out[2 * R:3 * R].astype(bool),
+                           vals=out[3 * R:4 * R], win=out[4 * R])
 
 
 register_backend("torch", TorchBackend)

@@ -25,6 +25,7 @@ from ..durability.manifest import Manifest
 from ..durability.wal import WriteAheadLog
 from ..tuner.simcache import GhostCache
 from .cache import ClockCache, Disk
+from .device_pool import DevicePagePool
 
 
 class MemoryArena:
@@ -49,12 +50,29 @@ class MemoryArena:
         self.manifest.bind(cfg)
         self.wal.bind_stats(self.disk.stats)
         self.members: list = []             # stores drawing from this arena
+        # Device page pool (device residency for fused reads): created by
+        # the first member store to register -- the pool needs the store's
+        # execution backend. Residency is derived state, so it is never
+        # checkpointed.
+        self.device_pool = None
 
     def register(self, store) -> int:
         """Add a member store; returns its index (0 for a standalone
         store)."""
+        if self.device_pool is None:
+            self.device_pool = DevicePagePool(
+                store.backend, self.cfg.page_bytes,
+                self.cfg.device_pool_bytes)
+            self.disk.device_pool = self.device_pool
         self.members.append(store)
         return len(self.members) - 1
+
+    def set_device_pool_bytes(self, budget_bytes: int) -> None:
+        """Resize the device page pool (the governor's fused-read knob).
+        Unlike ``set_write_memory`` this is not WAL-logged: residency is
+        reconstructible and lookup results never depend on it."""
+        if self.device_pool is not None:
+            self.device_pool.set_budget_bytes(budget_bytes)
 
     @property
     def stats(self):

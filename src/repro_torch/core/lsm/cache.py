@@ -180,6 +180,8 @@ class Disk:
     cache: ClockCache
     ghost: object = None                # tuner's GhostCache (optional)
     stats: IOStats = field(default_factory=IOStats)
+    device_pool: object = None          # DevicePagePool (optional): device
+                                        # residency for fused tier lookups
 
     def query_pin(self, sst_id: int, page_index: int) -> None:
         self.stats.query_pins += 1
@@ -220,6 +222,34 @@ class Disk:
         for p in pages:
             self.query_pin(sst_id, int(p))
 
+    def pin_run(self, sst_ids, pages) -> None:
+        """Ordered bulk query pins across possibly many tables -- the
+        fused replay's hot path. Accounting is identical to calling
+        ``query_pin(sst_ids[i], pages[i])`` for every i in sequence; the
+        loop just binds the cache's hit path locally so a replay of a few
+        hundred pins does not pay four attribute lookups and two call
+        frames per page. Callers pass plain int sequences (``.tolist()``)
+        so installed pids stay python-int keyed like the scalar path's.
+        """
+        cache = self.cache
+        slot_of = cache._slot_of
+        ref = cache._ref
+        self.stats.query_pins += len(sst_ids)
+        hits = 0
+        for pid in zip(sst_ids, pages):
+            s = slot_of.get(pid)
+            if s is not None:
+                ref[s] = 1
+                hits += 1
+                continue
+            cache.misses += 1
+            if cache.capacity > 0:
+                cache._install(pid)
+            self.stats.pages_query_read += 1
+            if self.ghost is not None:
+                self.ghost.on_disk_read(pid, merge=False)
+        cache.hits += hits
+
     def merge_pin(self, sst_id: int, page_index: int) -> None:
         self.stats.merge_pins += 1
         if not self.cache.pin((sst_id, page_index)):
@@ -246,3 +276,5 @@ class Disk:
         self.cache.invalidate_many(pids)
         if self.ghost is not None:
             self.ghost.invalidate_many(pids)
+        if self.device_pool is not None:
+            self.device_pool.drop_sst(sst)

@@ -109,12 +109,16 @@ class StoreConfig:
     # Device the backend runs on: "cuda" (the default; opening a store
     # without a GPU raises) or "cpu" (the kernels' plain versions).
     device: str = "cuda"
-    # Device page-pool budget for the fused read path. Only 0 (pool off,
-    # every lookup on the staged per-SSTable path) is supported until the
-    # device-pool slice of the port lands.
+    # Device page-pool budget for the fused read hot path; 0 keeps the
+    # pool disabled and every lookup on the staged per-SSTable path.
+    # Governors resize it at runtime via MemoryPlan.device_pool_bytes. It
+    # counts logical pages (budget // page_bytes), as the reference does.
     device_pool_bytes: int = 0
-    # Fused-read launch scope once the pool holds a tier resident; only
-    # "store" (the reference default) is accepted, see device_pool_bytes.
+    # Fused-read launch scope once the pool holds a tier resident:
+    # "store" collapses the whole lookup (every tier) into ONE kernel
+    # launch per batch, falling back per-tier then staged; "tier" keeps
+    # one launch per tier. Results, page pins and IOStats are
+    # bit-identical across all three paths.
     fused_scope: str = "store"
     # Max discretionary maintenance units per scheduler tick (None = drain
     # all merge debt every tick). Mandatory memory/log enforcement is never
@@ -167,16 +171,15 @@ class StoreConfig:
         if self.entry_bytes <= 0:
             raise ValueError(f"entry_bytes must be positive, got "
                              f"{self.entry_bytes}")
-        if self.device_pool_bytes != 0:
+        if self.device_pool_bytes < 0:
             raise ValueError(
-                f"device_pool_bytes must be 0: the device page pool and "
-                f"the fused read path come with slice 2 of the port "
-                f"(device-resident pool), got {self.device_pool_bytes}")
-        if self.fused_scope != "store":
+                f"device_pool_bytes must be >= 0 (0 disables the device "
+                f"page pool), got {self.device_pool_bytes}")
+        if self.fused_scope not in ("store", "tier"):
             raise ValueError(
-                f"fused_scope={self.fused_scope!r} is not supported: the "
-                f"per-tier fused path comes with slice 2 of the port "
-                f"(device-resident pool)")
+                f"fused_scope must be 'store' (one launch per lookup "
+                f"batch) or 'tier' (one per tier), got "
+                f"{self.fused_scope!r}")
         if self.merge_budget is not None and self.merge_budget < 0:
             raise ValueError(
                 f"merge_budget must be >= 0 (or None to drain all debt "
@@ -288,7 +291,7 @@ class LSMStore:
             l0_greedy=cfg.l0_greedy, l0_grouped=cfg.l0_grouped,
             dynamic_levels=cfg.dynamic_levels,
             static_num_levels=cfg.static_num_levels,
-            backend=self.backend,
+            backend=self.backend, fused_scope=cfg.fused_scope,
             manifest=self.arena.manifest, shard_id=self.shard_id)
         self.trees[name] = tree
         # Schema record: one TreeCreate per logical tree (the WAL dedups
@@ -331,6 +334,15 @@ class LSMStore:
     def set_write_memory(self, x: int) -> None:
         """Apply a new write-memory size (tuner's actuator)."""
         self.arena.set_write_memory(x)
+
+    @property
+    def device_pool(self):
+        """The device page pool behind fused reads."""
+        return self.arena.device_pool
+
+    def set_device_pool_bytes(self, budget_bytes: int) -> None:
+        """Resize the device page pool (governor's fused-read actuator)."""
+        self.arena.set_device_pool_bytes(budget_bytes)
 
     # -- durability plane -------------------------------------------------------
     @property

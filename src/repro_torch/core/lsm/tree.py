@@ -47,10 +47,14 @@ class LSMTree:
                  dynamic_levels: bool = True,
                  static_num_levels: int | None = None,
                  backend=None,
+                 fused_scope: str = "store",
                  manifest=None, shard_id: int = 0):
         self.name = name
         self.backend = backend or get_backend()
         self.disk = disk
+        # "store": try the one-launch cross-tier probe first, falling back
+        # to per-tier fused, then staged. "tier": per-tier fused only.
+        self.fused_scope = fused_scope
         # Durability: every on-disk SSTable this tree writes or retires is
         # recorded as a versioned manifest edit (None for bare fixtures).
         self.manifest = manifest
@@ -101,7 +105,8 @@ class LSMTree:
 
     def _manifest_remove(self, sst) -> None:
         # The manifest edit marks the table's retirement: its memoized
-        # Bloom filter dies with it.
+        # Bloom filter dies with it (the device pool learns through
+        # Disk.drop_sst at the same call sites).
         self._bloom_cache.pop(sst.sst_id, None)
         if self.manifest is not None:
             self.manifest.remove_sstable(self.shard_id, self.name, sst)
@@ -340,20 +345,184 @@ class LSMTree:
                          np.minimum(pos, sst.num_entries - 1)) // epp
         self.disk.query_pin_many(sst.sst_id, pages)
 
+    @staticmethod
+    def _pin_meta(view, rr, tier):
+        """Per-table geometry vectors (sst_id, entries_per_page,
+        num_entries) of one tier, memoized on the pooled view -- the view
+        is dropped whenever the tier's membership changes, so the memo
+        can never go stale."""
+        memo = getattr(view, "_pin_meta", None)
+        if memo is None:
+            memo = view._pin_meta = {}
+        m = memo.get(rr)
+        if m is None:
+            n = len(tier)
+            m = (np.fromiter((s.sst_id for s in tier), np.int64, n),
+                 np.fromiter((s.entries_per_page for s in tier),
+                             np.int64, n),
+                 np.fromiter((s.num_entries for s in tier), np.int64, n))
+            memo[rr] = m
+        return m
+
+    def _replay_tier_pins(self, meta, tis, starts, positive, pos, hit):
+        """Issue one tier's staged-order pin sequence -- per visited
+        table: one Bloom-unit pin per probed query, then the leaf page of
+        every Bloom positive -- built as flat arrays and executed through
+        ``Disk.pin_run``, accounting-identical to the per-group
+        ``query_pin_many``/``_leaf_pins`` loop. All inputs are in visit
+        order (stable-sorted by table, query order within a table)."""
+        sst_ids, epp, nent = meta
+        bounds = np.append(starts, len(tis))
+        nq = np.diff(bounds)                       # Bloom pins per group
+        nl = np.add.reduceat(positive.astype(np.intp), starts)
+        tot = nq + nl
+        gs = np.concatenate(([0], np.cumsum(tot)[:-1]))
+        S = np.empty(int(tot.sum()), np.int64)
+        P = np.empty(len(S), np.int64)
+        G = len(starts)
+        grp_b = np.repeat(np.arange(G), nq)
+        intra_b = np.arange(int(nq.sum())) - np.repeat(np.cumsum(nq) - nq,
+                                                       nq)
+        db = gs[grp_b] + intra_b
+        S[db] = sst_ids[tis[starts]][grp_b]
+        P[db] = -1
+        psel = np.flatnonzero(positive)
+        if len(psel):
+            t_p = tis[psel]
+            pp, hh = pos[psel], hit[psel]
+            lp = np.where(hh, pp,
+                          np.minimum(pp, nent[t_p] - 1)) // epp[t_p]
+            grp_l = np.repeat(np.arange(G), nl)
+            intra_l = np.arange(len(psel)) - np.repeat(np.cumsum(nl) - nl,
+                                                       nl)
+            dl = gs[grp_l] + nq[grp_l] + intra_l
+            S[dl] = sst_ids[t_p]
+            P[dl] = lp
+        self.disk.pin_run(S.tolist(), P.tolist())
+
+    def _probe_tier_fused(self, tier, keys, found, vals, unresolved) -> bool:
+        """Fused twin of ``probe_tier``: one kernel launch for the whole
+        tier through the pooled ``TierView``, then a host
+        replay of the staged path's exact per-table pin sequence -- so
+        results, page pins and IOStats are bit-identical to the staged
+        loop. Returns False when this tier must take the staged path for
+        this call (pool disabled or cold).
+        """
+        pool = self.disk.device_pool
+        if pool is None or not pool.enabled:
+            return False
+        idx_un = np.flatnonzero(unresolved)
+        if not len(idx_un) or not tier:
+            return True                    # the staged loop would no-op too
+        view = pool.acquire(tier, self._bloom)
+        if view is None:
+            return False
+        r = self.backend.lookup_fused(view, keys[idx_un])
+        st = self.disk.stats
+        st.fused_launches += 1
+        st.fused_tiers += 1
+        okidx = np.flatnonzero(r.ok)
+        if not len(okidx):
+            st.fused_tier_misses += 1
+            return True
+        # Group by table with ONE stable sort: ascending table order, and
+        # ascending query order within a table -- exactly the staged loop's
+        # (np.unique, flatnonzero) visit order without T full-batch scans.
+        order = okidx[np.argsort(r.ti[okidx], kind="stable")]
+        tis = r.ti[order]
+        starts = np.flatnonzero(np.r_[True, tis[1:] != tis[:-1]])
+        self._replay_tier_pins(self._pin_meta(view, 0, tier), tis, starts,
+                               r.positive[order], r.pos[order],
+                               r.hit[order])
+        sel = np.flatnonzero(r.hit)            # hit implies ok & positive
+        gidx = idx_un[sel]
+        found[gidx] = True
+        vals[gidx] = r.vals[sel]
+        unresolved[gidx] = False
+        if r.hit.any():
+            st.fused_tier_hits += 1
+        else:
+            st.fused_tier_misses += 1
+        return True
+
+    def _probe_store_fused(self, tiers, keys, found, vals, unresolved):
+        """One-launch twin of the whole tier loop: a single fused probe of
+        every lookup tier through the pooled ``StoreView`` (Bloom stack +
+        ranged search + on-device newest-wins argmin), then a host replay
+        of the staged path's exact per-tier, per-table pin sequence. The
+        replay visits tier r only for the queries the staged loop would
+        still have had unresolved there (``win`` == -1 or >= r), so page
+        pins and IOStats stay bit-identical. Returns False when the batch
+        must fall back to the per-tier (and from there staged) path (pool
+        disabled or cold)."""
+        pool = self.disk.device_pool
+        if pool is None or not pool.enabled:
+            return False
+        idx_un = np.flatnonzero(unresolved)
+        tiers = [t for t in tiers if t]
+        if not len(idx_un) or not tiers:
+            return True                    # the tier loop would no-op too
+        view = pool.acquire_store(tiers, self._bloom)
+        if view is None:
+            return False
+        r = self.backend.lookup_store_fused(view, keys[idx_un])
+        st = self.disk.stats
+        st.fused_launches += 1
+        st.fused_tiers += len(tiers)
+        win = r.win
+        for rr, tier in enumerate(tiers):
+            # Staged-order activity: a query reaches tier rr iff no newer
+            # tier resolved it.
+            active = (win == -1) | (win >= rr)
+            sel0 = np.flatnonzero(r.ok[rr] & active)
+            if len(sel0):
+                order = sel0[np.argsort(r.ti[rr][sel0], kind="stable")]
+                tis = r.ti[rr][order]
+                starts = np.flatnonzero(np.r_[True, tis[1:] != tis[:-1]])
+                self._replay_tier_pins(self._pin_meta(view, rr, tier),
+                                       tis, starts, r.positive[rr][order],
+                                       r.pos[rr][order], r.hit[rr][order])
+            if (win == rr).any():
+                st.fused_tier_hits += 1
+            else:
+                st.fused_tier_misses += 1
+        res = np.flatnonzero(win >= 0)
+        gidx = idx_un[res]
+        found[gidx] = True
+        vals[gidx] = r.vals[win[res], res]
+        unresolved[gidx] = False
+        return True
+
     def lookup_batch(self, keys):
         """Batched point lookups; returns (found bool[n], vals int64[n]).
 
         Probe order matches the scalar semantics: memory component, then L0
         newest-group-first, then disk levels top-down; a key stops probing
-        once resolved. This is the staged path: one Bloom probe and one
-        sorted probe per (SSTable, batch), through the backend."""
+        once resolved. With the device pool on, the whole store is probed
+        in one launch, or each resident tier in one; otherwise (and for a
+        cold tier) the staged path runs one Bloom probe and one sorted
+        probe per (SSTable, batch)."""
         keys = np.asarray(keys, np.int64)
         self.stats.lookups += len(keys)
         found, vals = self.mem.lookup_batch(keys)
         unresolved = ~found
-        for tier in self.l0.lookup_tiers() + self.levels.lookup_tiers():
+        tiers = self.l0.lookup_tiers() + self.levels.lookup_tiers()
+        # Whole-store hot path first: ONE device launch for every tier.
+        # Any miss (cold pool) falls back to the per-tier
+        # fused loop -- whose own cold ``acquire`` calls admit pages, so
+        # the store stack is typically resident by the next batch.
+        if unresolved.any() and self.fused_scope == "store" \
+                and self._probe_store_fused(tiers, keys, found, vals,
+                                            unresolved):
+            tiers = []
+        for tier in tiers:
             if not unresolved.any():
                 break
+            # Device-resident hot path first: one fused probe per tier.
+            # Any miss (cold pool) stays on the staged loop
+            # for this call with identical results and pin accounting.
+            if self._probe_tier_fused(tier, keys, found, vals, unresolved):
+                continue
             probe_tier(tier, keys, found, vals, unresolved,
                        self.backend.lookup_batch,
                        pre_probe=self._bloom_gate,

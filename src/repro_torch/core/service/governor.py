@@ -12,9 +12,9 @@ scatters across layers:
     flush policy through ``MemoryPlan.flush_policy``.
 
 ``StaticGovernor`` pins a fixed allocation (the baseline schemes) and is
-the service's default; ``StallGovernor`` tunes the pacer. The §5.4 tuner
-(``AdaptiveGovernor``) and the device-pool governor are not in this
-package yet.
+the service's default; ``StallGovernor`` tunes the pacer;
+``DevicePoolGovernor`` sizes the device page pool behind fused reads. The
+§5.4 tuner (``AdaptiveGovernor``) is not in this package yet.
 """
 from __future__ import annotations
 
@@ -27,6 +27,9 @@ class MemoryPlan:
 
     write_memory_bytes: int | None = None
     flush_policy: str | None = None
+    # Budget of the device page pool behind fused tier lookups; actuated
+    # via MemoryArena.set_device_pool_bytes (0 disables the pool).
+    device_pool_bytes: int | None = None
     # Pacing knobs (StallGovernor): actuated onto the live MaintenancePacer
     # only -- never written back to StoreConfig, so recovery re-paces from
     # the configured values, not the tuned ones.
@@ -68,6 +71,100 @@ class StaticGovernor(MemoryGovernor):
                           flush_policy=self.flush_policy, note="static-pin")
 
 
+class DevicePoolGovernor(MemoryGovernor):
+    """Adaptive sizing of the fused-read device page pool from its own
+    hit/miss stream, through the standard ``MemoryPlan`` actuation.
+
+    Every ``ops_cycle`` logical store operations it takes the pool's
+    hit/miss deltas (tier- and store-level acquires combined): while
+    residency keeps failing (cold pool or a budget too small for the
+    working tiers) the budget doubles toward ``max_bytes``; when the
+    fused path is serving and the clock holds fewer pages than half the
+    capacity, the slack is returned (halved, floored at ``min_bytes``).
+    Decisions are emitted, not self-actuated: ``StorageService
+    ._apply_plan`` -> ``MemoryArena.set_device_pool_bytes`` is the single
+    writer of the budget, same as the write-memory split.
+
+    Two stabilizers keep the doubling/halving from oscillating on
+    workloads that sit near the decision boundary:
+
+      * deadband -- act only when the cycle's miss fraction leaves
+        ``[0.5 - deadband, 0.5 + deadband]``; inside the band the budget
+        holds (the raw ``d_miss > d_hit`` rule flapped on ~50/50 mixes);
+      * min dwell -- a direction REVERSAL (grow->shrink or shrink->grow)
+        needs ``min_dwell`` CONSECUTIVE cycles wanting the opposite
+        direction, so neither one anomalous cycle nor a strictly
+        alternating workload can bounce the budget back and forth. Held
+        reversals are recorded with ``held=True``.
+    """
+
+    def __init__(self, *, min_bytes: int = 1 << 20,
+                 max_bytes: int = 256 << 20, ops_cycle: int = 2048,
+                 deadband: float = 0.15, min_dwell: int = 2):
+        self.min_bytes = int(min_bytes)
+        self.max_bytes = int(max_bytes)
+        self.ops_cycle = int(ops_cycle)
+        self.deadband = float(deadband)
+        self.min_dwell = int(min_dwell)
+        self._last_ops = 0
+        self._last: dict | None = None
+        self._dir = 0               # last actuated direction (+1/-1)
+        self._rev = 0               # consecutive opposite-direction wants
+        self.records: list = []
+
+    def attach(self, store) -> None:
+        self._last_ops = store.disk.stats.ops
+        pool = store.device_pool
+        self._last = dict(pool.stats()) if pool is not None else None
+
+    def observe(self, service) -> MemoryPlan | None:
+        store = service.store
+        pool = store.device_pool
+        if pool is None:
+            return None
+        ops = store.disk.stats.ops
+        if ops - self._last_ops < self.ops_cycle:
+            return None
+        self._last_ops = ops
+        st = pool.stats()
+        prev = self._last or {k: 0 for k in st}
+        self._last = dict(st)
+        d_hit = (st["tier_hits"] - prev.get("tier_hits", 0)
+                 + st["store_hits"] - prev.get("store_hits", 0))
+        d_miss = (st["tier_misses"] - prev.get("tier_misses", 0)
+                  + st["store_misses"] - prev.get("store_misses", 0))
+        miss_frac = d_miss / (d_hit + d_miss) if d_hit + d_miss else 0.5
+        budget = pool.budget_bytes
+        if miss_frac > 0.5 + self.deadband:
+            want, new = 1, min(self.max_bytes,
+                               max(2 * budget, self.min_bytes))
+        elif miss_frac < 0.5 - self.deadband \
+                and st["resident_pages"] < st["capacity_pages"] // 2:
+            want, new = -1, max(self.min_bytes, budget // 2)
+        else:
+            self._rev = 0           # in-band: the reversal streak breaks
+            return None
+        held = False
+        if self._dir != 0 and want != self._dir:
+            self._rev += 1
+            held = self._rev < self.min_dwell
+        else:
+            self._rev = 0
+        if not held and new != budget:
+            self._dir, self._rev = want, 0
+        rec = {"budget": budget, "budget_next": budget if held else new,
+               "tier_hits": d_hit, "tier_misses": d_miss,
+               "miss_frac": miss_frac, "held": held,
+               "resident_pages": st["resident_pages"]}
+        if held or new == budget:
+            if held:
+                self.records.append(rec)
+            return None
+        self.records.append(rec)
+        return MemoryPlan(device_pool_bytes=new,
+                          note=f"device-pool:{new}")
+
+
 class StallGovernor(MemoryGovernor):
     """Auto-nudges the pacer's knobs from the observed stall tail
     (``StoreConfig.pacer_autotune``).
@@ -86,7 +183,8 @@ class StallGovernor(MemoryGovernor):
     Decisions are emitted as ``MemoryPlan``s and actuated by the service
     onto the LIVE pacer only -- ``StoreConfig`` stays at its configured
     values, so a recovered service re-paces from configuration, never
-    from a tuned transient. Two stabilizers: hold inside
+    from a tuned transient. The deadband + min-dwell stabilizers are the
+    ``DevicePoolGovernor`` idiom: hold inside
     ``target * [1 - deadband, 1 + deadband]``, and require ``min_dwell``
     consecutive cycles wanting a direction REVERSAL before acting on it
     (held reversals are recorded with ``held=True``).

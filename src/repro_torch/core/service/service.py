@@ -444,6 +444,10 @@ class StorageService:
                     f"governor proposed unknown flush policy "
                     f"{plan.flush_policy!r}; expected one of {POLICIES}")
             s.cfg.flush_policy = plan.flush_policy
+        if plan.device_pool_bytes is not None \
+                and s.device_pool is not None \
+                and plan.device_pool_bytes != s.device_pool.budget_bytes:
+            s.set_device_pool_bytes(plan.device_pool_bytes)
         if self.pacer is not None:
             # Live-pacer knobs only: StoreConfig keeps the configured
             # values, so recovery re-paces from configuration.

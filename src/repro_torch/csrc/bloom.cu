@@ -14,30 +14,15 @@
 // filters of the engine's tables (2.5 KB to 10 MB) sit in L2 after the
 // first touch. At the main path's sizes launch latency is the floor.
 //
-// Hash math, bit-identical to the host reference (_bloom_slots): truncate
-// the key to int32, multiply in uint32 (wraps, no signed overflow),
-// reinterpret as int32, take floor-mod by n_slots (C++ % truncates), and
-// add j * h2 in int64 before the last mod.
+// Hash math: bloom_hash.cuh, shared with the fused lookup kernels.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bloom_hash.cuh"
+
 namespace {
 
-constexpr uint32_t kC1 = 0x9E3779B1u;
-constexpr uint32_t kC2 = 0x85EBCA77u;
-
-__device__ __forceinline__ int64_t floor_mod(int32_t x, int32_t n) {
-  int32_t r = x % n;
-  if (r < 0) r += n;
-  return r;
-}
-
-__device__ __forceinline__ void hashes(int64_t key, int32_t n_slots,
-                                       int64_t* h1, int64_t* h2) {
-  const uint32_t u = static_cast<uint32_t>(static_cast<uint64_t>(key));
-  *h1 = floor_mod(static_cast<int32_t>(u * kC1), n_slots);
-  *h2 = floor_mod(static_cast<int32_t>((u * kC2) | 1u), n_slots);
-}
+using repro_bloom::hashes;
 
 __global__ void bloom_build_kernel(const int64_t* __restrict__ keys,
                                    int64_t n, int32_t n_slots, int k_hashes,
@@ -57,13 +42,7 @@ __global__ void bloom_probe_kernel(const uint8_t* __restrict__ filt,
                                    int64_t n, uint8_t* __restrict__ out) {
   int64_t q = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (q >= n) return;
-  int64_t h1, h2;
-  hashes(keys[q], n_slots, &h1, &h2);
-  uint8_t member = 1;
-  for (int j = 0; j < k_hashes; ++j) {
-    member &= filt[(h1 + j * h2) % n_slots] != 0;
-  }
-  out[q] = member;
+  out[q] = repro_bloom::member(filt, n_slots, k_hashes, keys[q]);
 }
 
 }  // namespace

@@ -6,7 +6,8 @@ import torch
 # Kernel launches in this process, one plain integer per kernel. A wrapper
 # adds one where it launches its kernel and nowhere else, so a run that
 # zeroes these first shows which kernels its path went through.
-LAUNCHES = {"merge_pair": 0, "bloom_build": 0, "bloom_probe": 0}
+LAUNCHES = {"merge_pair": 0, "bloom_build": 0, "bloom_probe": 0,
+            "probe_tier": 0, "probe_store": 0}
 
 
 def on_card(*tensors: torch.Tensor) -> bool:

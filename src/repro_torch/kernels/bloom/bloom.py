@@ -36,13 +36,17 @@ def _as_int32(p):
     return p - ((p >> 31) << 32)
 
 
-def bloom_slots_plain(keys, n_slots: int, k_hashes: int):
-    """[K, k] int64 slot indices of int64 ``keys``."""
+def bloom_slots_plain(keys, n_slots, k_hashes: int):
+    """``[..., k]`` int64 slot indices of int64 ``keys``. ``n_slots`` is
+    one slot count, or an int64 tensor of the shape of ``keys`` that gives
+    each key its own (the fused read path probes each query against its
+    own table's filter)."""
     u = keys & _LOW32
     h1 = torch.remainder(_as_int32(_wrap_mul32(u, C1)), n_slots)
     h2 = torch.remainder(_as_int32(_wrap_mul32(u, C2) | 1), n_slots)
     j = torch.arange(k_hashes, dtype=torch.int64, device=keys.device)
-    return (h1[:, None] + j[None, :] * h2[:, None]) % n_slots
+    n = n_slots[..., None] if torch.is_tensor(n_slots) else n_slots
+    return (h1[..., None] + j * h2[..., None]) % n
 
 
 def bloom_build_plain(keys, n_slots: int, k_hashes: int):

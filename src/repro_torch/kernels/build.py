@@ -4,8 +4,8 @@ The sources under ``repro_torch/csrc/`` are compiled with ``nvcc`` for
 Hopper (``sm_90a``) into one shared library with a plain C interface and
 loaded with ``ctypes``. The build runs at first use, one ``nvcc`` per
 source started together, and lands in ``repro_torch/build/`` under a name
-that hashes the sources and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.
+that hashes the sources, their shared headers (``*.cuh``) and the flags,
+so an edited source is rebuilt and an unchanged one is loaded as it is.
 """
 from __future__ import annotations
 
@@ -31,6 +31,8 @@ SIGNATURES = {
     "merge_pair": [_P, _P, _I64, _P, _P, _I64, _P, _P, _P, _P],
     "bloom_build": [_P, _I64, _I32, _INT, _P, _P],
     "bloom_probe": [_P, _I32, _INT, _P, _I64, _P, _P],
+    "probe_tier": [_P] * 7 + [_INT, _P, _P, _I64, _P, _P],
+    "probe_store": [_P] * 8 + [_I64, _INT, _P, _P, _I64, _P, _P],
 }
 
 
@@ -53,7 +55,7 @@ def sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"librepro_torch_kernels_{h.hexdigest()[:16]}.so"

@@ -228,7 +228,8 @@ def test_wrappers_take_the_plain_version_only_on_cpu(tb):
     bloom_k.bloom_probe(f, k, 7)
     assert LAUNCHES == before                  # the plain versions ran
     assert tb.launches is LAUNCHES and set(LAUNCHES) == {
-        "merge_pair", "bloom_build", "bloom_probe"}
+        "merge_pair", "bloom_build", "bloom_probe", "probe_tier",
+        "probe_store"}
     m = torch.empty(5, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         merge_k.merge_pair(m, m, m, m)
@@ -237,11 +238,3 @@ def test_wrappers_take_the_plain_version_only_on_cpu(tb):
     with pytest.raises(ValueError, match="multiple of 128"):
         bloom_k.bloom_build(k, 1000, 7)
 
-
-def test_fused_read_path_raises(tb):
-    for call in (lambda: tb.prepare_tier([], None),
-                 lambda: tb.lookup_fused(None, np.zeros(1, np.int64)),
-                 lambda: tb.prepare_store([], None),
-                 lambda: tb.lookup_store_fused(None, np.zeros(1, np.int64))):
-        with pytest.raises(NotImplementedError, match="device page pool"):
-            call()

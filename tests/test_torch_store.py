@@ -140,8 +140,6 @@ def test_paced_service_bit_identical_to_reference():
 
 # --------------------------- device rules ------------------------------------
 @pytest.mark.parametrize("knob,value,slice_name", [
-    ("device_pool_bytes", 1 << 20, "slice 2"),
-    ("fused_scope", "tier", "slice 2"),
     ("storage_medium", "files", "files-medium slice"),
     ("maintenance_workers", 2, "workers-and-recovery slice"),
 ])
