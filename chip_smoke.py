@@ -10,7 +10,11 @@
    version on the card, with exact integer equality, at the main path's
    shapes (K4 on a tier of 512 tables of 2048 keys, K3 on a store of six
    tiers and 512 tables; 4096 queries, half present), and times kernel,
-   plain version and a library yardstick with CUDA events.
+   plain version and a library yardstick with CUDA events. Then K6
+   (flash_attention) against its plain version in bf16 (2e-2) and f32
+   (1e-5) at the serving path's prefill and decode shapes (Yi-6B heads),
+   a 4096-token Yi-6B prefill and a Gemma-2-27B local layer (8192 tokens,
+   window 4096, softcap 50), timed beside SDPA with the same mask.
 3. Staged service phase: ``StorageService`` at the paper's geometry
    (StoreConfig defaults: 16 KB pages, 1 KB entries, 512 MB memory, 128 MB
    write memory, device pool off), partitioned memory component, OPT
@@ -36,16 +40,32 @@
    counters must be identical, every replay must run log-triggered
    flushes, and the card's replays must launch the kernels of their path
    (K5 with the pool on: the tier-scope replay's cold tiers).
+6. Serve phase: ``repro_torch.launch.serve.main`` at Yi-6B's full width
+   (32 layers, f32 params, bf16 compute, random weights from seed 0) with
+   the reference's defaults: 64 requests in batches of 4, 48 prompt
+   tokens, 16 generated. K6 must launch exactly 32 x 17 x 16 = 8,704
+   times and every logits tensor must be finite; prints step times and
+   tokens/s (CUDA events only, no profiler attached), memory, the pool's
+   stats, the governor's records and the entry point's lines. A second,
+   short run (8 requests) is profiled over 5 decode steps.
+7. Card-vs-CPU model phase: Yi-6B at full width but 2 layers, batch 4,
+   prompt 48, 8 decode steps, the same seeded weights on the card and on
+   the CPU, in f32 and bf16 compute: the largest and the RMS logits
+   difference within ``MODEL_TOL`` at every step, greedy tokens equal
+   wherever the CPU's top-2 gap exceeds twice the largest; each fault of
+   ``MODEL_FAULTS`` run on the card in place of K6 must break a limit.
 
 Prints JSON lines; the ``kernels`` line lists each kernel with its launch
-count on its service phase (K3 and K4: the pool phase), its time, its
-bound and its yardsticks. The last line is ``{"ok": true, "device":
+count on its main path (K1, K2, K5: the staged service phase; K3 and K4:
+the pool phase; K6: the serve phase), its time, its bound and its
+yardsticks. The last line is ``{"ok": true, "device":
 {...}}``. Exits non-zero without a GPU, and when any phase fails.
 """
 from __future__ import annotations
 
 import contextlib
 import hashlib
+import io
 import json
 import os
 import subprocess
@@ -66,14 +86,23 @@ from repro_torch.core.engine.backend import (  # noqa: E402
 from repro_torch.core.engine.torch_backend import TorchBackend  # noqa: E402
 from repro_torch.core.lsm.sstable import (TOMBSTONE,  # noqa: E402
                                           partition_run, reset_sst_ids)
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels._launch import LAUNCHES  # noqa: E402
+from repro_torch.kernels.attention import attention as attn_k  # noqa: E402
 from repro_torch.kernels.bloom import bloom as bloom_k  # noqa: E402
 from repro_torch.kernels.lookup import lookup as lookup_k  # noqa: E402
 from repro_torch.kernels.merge import merge as merge_k  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import attention as port_attention  # noqa: E402
+from repro_torch.models import build_model, init_params  # noqa: E402
+from repro_torch.models.params import leaves, tree_map  # noqa: E402
+from repro_torch.models.transformer import CausalLM  # noqa: E402
+from repro_torch.runtime.hbm_tuner import HBMGovernor  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 OPS_PER_S = 67e12                # H100 SXM peak outside the tensor cores
+BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
 K_HASHES = 7
 KB, MB = 1 << 10, 1 << 20
 # The service phase raises the transaction-log cap above the bytes it
@@ -98,6 +127,8 @@ SOURCES = {
                    "src/repro/kernels/bloom/bloom.py:118"),
     "probe_store": ("src/repro_torch/csrc/lookup.cu",
                     "src/repro/kernels/bloom/bloom.py:179"),
+    "flash_attention": ("src/repro_torch/csrc/attention.cu",
+                        "src/repro/kernels/attention/flash.py:66"),
 }
 # The pool service phase: a device page pool of 2 GiB of logical 16 KB
 # pages (131,072), room for every disk table of the 2**20-key store.
@@ -125,11 +156,11 @@ def cuda_ms(fn, reps: int = 25) -> float:
     return float(np.median(times))
 
 
-def bound(nbytes: int, nops: int) -> dict:
+def bound(nbytes: int, nops: int, ops_per_s: float = OPS_PER_S) -> dict:
     """Least time the card could take: the bytes that must move at the
     memory rate, or the operations at the peak rate, whichever is longer."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = nops / OPS_PER_S * 1e3
+    by_ops = nops / ops_per_s * 1e3
     if by_bytes >= by_ops:
         return {"bound_ms": by_bytes, "bound_by": "bytes"}
     return {"bound_ms": by_ops, "bound_by": "operations"}
@@ -721,12 +752,411 @@ def compare_replays(a: dict, b: dict) -> None:
             raise AssertionError(f"card and CPU replays differ in {k}")
 
 
+# --------------------------- K6: attention kernel phase ----------------------
+# K6 against its plain version: bf16 by 2e-2 (the kernel rounds p to bf16
+# per key tile, the plain version once over all keys), f32 by 1e-5
+# (summation order only).
+ATTN_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+YI_HEADS = {"h": 32, "kv": 4, "hd": 128}
+# The serving path's prefill (48 prompt tokens over its cache of 64 rows)
+# and decode (one query over rows 0..pos of that cache), a 4096-token
+# Yi-6B prefill, and a Gemma-2-27B local layer at 8192 tokens.
+ATTN_CASES = [
+    ("serve_prefill", dict(b=4, sq=48, sk=64, causal=True, **YI_HEADS)),
+    *[(f"serve_decode_pos{p}", dict(b=4, sq=1, sk=p + 1, causal=False,
+                                    **YI_HEADS)) for p in (0, 47, 63)],
+    ("yi_prefill_4096", dict(b=1, sq=4096, sk=4096, causal=True, **YI_HEADS)),
+    ("gemma2_local_8192", dict(b=1, sq=8192, sk=8192, causal=True, h=32,
+                               kv=16, hd=128, window=4096, softcap=50.0)),
+]
+# The kernels line reports the serving path's most frequent call: decode
+# at the last position of its 64-row cache, in the compute dtype.
+ATTN_REPORTED = "serve_decode_pos63/bfloat16"
+SERVE_CACHE_ROWS = 64
+
+
+def _kept_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs that K6 keeps for one batch row and head."""
+    if not causal:
+        return sq * sk
+    qp = np.arange(sq)
+    hi = np.minimum(qp, sk - 1)
+    lo = np.maximum(qp - window + 1, 0) if window > 0 else np.zeros_like(qp)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _attn_inputs(shape: dict, dtype, gen):
+    """q, and k, v as row views of a cache of 64 rows where the serving
+    path reads one (the model's own strided layout), else whole tensors."""
+    b, sq, sk, h, kv, hd = (shape[k] for k in ("b", "sq", "sk", "h", "kv",
+                                               "hd"))
+    rows = max(sk, SERVE_CACHE_ROWS)
+
+    def mk(*s):
+        return torch.randn(*s, generator=gen, device="cuda").to(dtype)
+
+    q = mk(b, sq, h, hd)
+    return q, mk(b, rows, kv, hd)[:, :sk], mk(b, rows, kv, hd)[:, :sk]
+
+
+def check_attention(gen) -> dict:
+    """Hold K6 against its plain version at every case in bf16 and f32;
+    time the kernel, its plain version and the SDPA yardstick with the
+    same mask (none with a softcap, which SDPA does not take). Raises
+    beyond tolerance."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    out = {}
+    for name, shape in ATTN_CASES:
+        kw = {"causal": shape["causal"], "window": shape.get("window", 0),
+              "softcap": shape.get("softcap", 0.0)}
+        for dname in ("bfloat16", "float32"):
+            q, k, v = _attn_inputs(shape, getattr(torch, dname), gen)
+            got = attn_k.flash_attention(q, k, v, **kw)
+            want = attn_k.flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            del got, want
+            if not err <= ATTN_TOL[dname]:
+                raise AssertionError(f"flash_attention {name} {dname}: max "
+                                     f"abs err {err} > {ATTN_TOL[dname]}")
+            reps = 5 if shape["sq"] >= 4096 else 25
+            # Bytes: q read and o written once, and the k and v rows that
+            # some query keeps (rows 0..min(sq, sk)-1 when causal).
+            kv_rows = (min(shape["sq"], shape["sk"]) if kw["causal"]
+                       else shape["sk"])
+            nbytes = (2 * q.numel() + 2 * shape["b"] * kv_rows * shape["kv"]
+                      * shape["hd"]) * q.element_size()
+            pairs = _kept_pairs(shape["sq"], shape["sk"], kw["causal"],
+                                kw["window"]) * shape["b"] * shape["h"]
+            rate = BF16_OPS_PER_S if dname == "bfloat16" else OPS_PER_S
+            lib = None
+            if not kw["softcap"]:
+                mask = (attn_k.keep_mask(shape["sq"], shape["sk"],
+                                         kw["window"], q.device)
+                        if kw["window"] else None)
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                lib = cuda_ms(lambda: sdpa(
+                    qt, kt, vt, attn_mask=mask,
+                    is_causal=kw["causal"] and mask is None,
+                    scale=shape["hd"] ** -0.5, enable_gqa=True), reps)
+            out[f"{name}/{dname}"] = {
+                "shape": shape, "max_abs_err": err, "tol": ATTN_TOL[dname],
+                "ms": cuda_ms(lambda: attn_k.flash_attention(q, k, v, **kw),
+                              reps),
+                "device_ms": kernel_device_ms(
+                    lambda: attn_k.flash_attention(q, k, v, **kw),
+                    "flash_attention_kernel", reps),
+                "plain_ms": cuda_ms(
+                    lambda: attn_k.flash_attention_plain(q, k, v, **kw), reps),
+                **bound(nbytes, 4 * shape["hd"] * pairs, rate),
+                "kept_pairs": pairs, "library_ms": lib}
+            del q, k, v
+            torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------- serve phase --------------------------------------
+@contextlib.contextmanager
+def patched(cls, name, make):
+    """Replace ``cls.name`` by ``make(original)`` for the block."""
+    orig = getattr(cls, name)
+    setattr(cls, name, make(orig))
+    try:
+        yield
+    finally:
+        setattr(cls, name, orig)
+
+
+class _ServeProbe:
+    """What the serve phase reads around ``serve.main``: CUDA events around
+    every prefill and decode step (no synchronisation), whether every
+    logits tensor is finite (flags on the device, read once at the end),
+    the governor, and, when ``n_profile`` > 0, the profiler over
+    ``n_profile`` decode steps from step ``profile_from``."""
+
+    def __init__(self, profile_from: int = 0, n_profile: int = 0):
+        self.prefill, self.decode, self.finite = [], [], []
+        self.governor = None
+        self.profile_from, self.n_profile = profile_from, n_profile
+        self.prof = None
+        self.prof_wall = 0.0
+
+    @staticmethod
+    def _timed(events, orig):
+        def fn(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = orig(*a, **kw)
+            e1.record()
+            events.append((e0, e1))
+            return out
+        return fn
+
+    def _decode(self, orig):
+        timed = self._timed(self.decode, orig)
+        if not self.n_profile:
+            return timed
+
+        def fn(*a, **kw):
+            i = len(self.decode)
+            if i == self.profile_from:
+                from torch.profiler import ProfilerActivity, profile
+                torch.cuda.synchronize()
+                # Device activity only: with CPU ops traced too, each op's
+                # self device time would count its kernels a second time.
+                self.prof = profile(activities=[ProfilerActivity.CUDA])
+                self.prof.__enter__()
+                self.prof_wall = time.perf_counter()
+            out = timed(*a, **kw)
+            if i == self.profile_from + self.n_profile - 1:
+                torch.cuda.synchronize()
+                self.prof_wall = time.perf_counter() - self.prof_wall
+                self.prof.__exit__(None, None, None)
+            return out
+        return fn
+
+    def _logits(self, orig):
+        def fn(model, params, x):
+            out = orig(model, params, x)
+            self.finite.append(torch.isfinite(out).all())
+            return out
+        return fn
+
+    def _observe(self, orig):
+        def fn(gov, *a, **kw):
+            self.governor = gov
+            return orig(gov, *a, **kw)
+        return fn
+
+    @contextlib.contextmanager
+    def attached(self):
+        with patched(CausalLM, "prefill",
+                     lambda f: self._timed(self.prefill, f)), \
+                patched(CausalLM, "decode_step", self._decode), \
+                patched(CausalLM, "_logits", self._logits), \
+                patched(HBMGovernor, "observe", self._observe):
+            yield self
+
+    def profile_report(self) -> dict:
+        dev: dict = {}
+        for e in self.prof.key_averages():
+            us = getattr(e, "self_device_time_total", 0.0)
+            if us > 0:
+                dev[e.key] = dev.get(e.key, 0.0) + us
+        total = sum(dev.values())
+        k6 = sum(v for k, v in dev.items() if "flash_attention_kernel" in k)
+        top = sorted(dev.items(), key=lambda kv: -kv[1])[:10]
+        return {"decode_steps": self.n_profile,
+                "wall_ms": self.prof_wall * 1e3, "device_ms": total / 1e3,
+                "device_busy_share": total / 1e3 / (self.prof_wall * 1e3),
+                "flash_attention_share": k6 / total if total else None,
+                "device_ms_top": [[k[:100], v / 1e3] for k, v in top]}
+
+
+def run_serve(argv, *, profile_from: int = 0, n_profile: int = 0) -> dict:
+    """``repro_torch.launch.serve.main(argv)`` on the card under a
+    ``_ServeProbe``; returns its stats and lines, times, counts and the
+    device's memory, and with ``n_profile`` > 0 the profile (then the
+    times hold the profiled steps: use them for the profile alone)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    probe = _ServeProbe(profile_from, n_profile)
+    buf = io.StringIO()
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    with probe.attached(), contextlib.redirect_stdout(buf):
+        stats = serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    pre = [a.elapsed_time(b) for a, b in probe.prefill]
+    dec = [a.elapsed_time(b) for a, b in probe.decode]
+    loop_s = probe.prefill[0][0].elapsed_time(probe.decode[-1][1]) / 1e3
+    lines = buf.getvalue().splitlines()
+    serve_line = [ln for ln in lines if ln.startswith("[serve]")][-1]
+    tokens = int(serve_line.split("tokens=")[1].split()[0])
+    out = {"argv": argv, "wall_s": wall, "loop_s": loop_s,
+           "launches": launches,
+           "logits_finite": bool(torch.stack(probe.finite).all()),
+           "logits_calls": len(probe.finite),
+           "prefill_calls": len(pre), "decode_calls": len(dec),
+           "prefill_ms_median": float(np.median(pre)),
+           "prefill_ms_mean": float(np.mean(pre)),
+           "decode_ms_median": float(np.median(dec)),
+           "decode_ms_mean": float(np.mean(dec)),
+           "tokens": tokens, "tokens_per_s": tokens / loop_s,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "stats": stats, "lines": lines,
+           "governor_records": probe.governor.records}
+    if n_profile:
+        out["profile"] = probe.profile_report()
+    return out
+
+
+def param_bytes(cfg) -> dict:
+    """Bytes of the params in ``param_dtype`` and of the compute copy (every
+    weight but the norm scales, in the compute dtype)."""
+    specs = leaves(build_model(cfg).param_specs())
+    n = sum(int(np.prod(s.shape)) for s in specs)
+    n_scale = sum(int(np.prod(s.shape)) for s in specs if s.init == "ones")
+    size = lambda d: torch.empty((), dtype=getattr(torch, d)).element_size()  # noqa: E731
+    return {"param_bytes": n * size(cfg.param_dtype),
+            "compute_copy_bytes": (n - n_scale) * size(cfg.compute_dtype)}
+
+
+# --------------------------- card-vs-CPU model phase -------------------------
+# Logits limits of the card-vs-CPU model phase, absolute, on the largest and
+# on the RMS difference over one step's logits (f32 compute: summation order
+# only; bf16: the two devices round activations at other places). Each is
+# about 3x the largest reading of a sound run on an H100 (f32: 1.53e-5 and
+# 9.5e-7; bf16: 0.25, one bf16 ulp of the fed token's logit near 48, and
+# 6.0e-3, against logits of RMS 1.0); PERF.md (section 6) has the readings
+# and the faults that break them.
+MODEL_TOL = {"float32": {"max": 5e-5, "rms": 3e-6},
+             "bfloat16": {"max": 0.75, "rms": 0.018}}
+# Depth of the card-vs-CPU model phase (Yi-6B has 32 layers): the CPU side
+# must finish inside the run's time limit.
+MODEL_LAYERS = 2
+
+
+def _p_unrounded(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """K6's function with ``p`` kept in f32 before ``p @ v``."""
+    return attn_k.flash_attention_plain(
+        q.float(), k.float(), v.float(), causal=causal, window=window,
+        softcap=softcap).to(q.dtype)
+
+
+def _skip_oldest_key(f):
+    def fn(q, k, v, **kw):
+        if q.shape[1] == 1 and k.shape[1] > 1:      # decode: off by one row
+            k, v = k[:, 1:], v[:, 1:]
+        return f(q, k, v, **kw)
+    return fn
+
+
+# Faults run on the card in place of K6 and held to the same limits: each
+# must break one of them in the compute dtypes listed. "p_unrounded" is
+# K6's function in f32, and in bf16 its logits stay inside the card-vs-CPU
+# rounding noise, so it is recorded and not asserted.
+BOTH = ("float32", "bfloat16")
+MODEL_FAULTS = {
+    "attention_dropped": (
+        lambda f: lambda q, k, v, **kw: torch.zeros_like(q), BOTH),
+    "decode_skips_oldest_key": (_skip_oldest_key, BOTH),
+    "p_unrounded": (lambda f: _p_unrounded, ()),
+}
+
+
+def _greedy_logits(m, params, cache, tokens, steps: int, d,
+                   feed=None) -> tuple:
+    """Prefill ``tokens`` and decode ``steps`` tokens on device ``d``: the
+    last row's logits of each step (f32, on the CPU) and the tokens fed
+    after each step (the greedy ones, or ``feed``'s)."""
+    out, fed = [], []
+    lg, _ = m.prefill(params, tokens.to(d), cache)
+    for step in range(steps + 1):
+        if step:
+            lg, _ = m.decode_step(params, tok.to(d), cache,
+                                  tokens.shape[1] + step - 1)
+        out.append(lg[:, -1].float().cpu())
+        tok = (out[-1].argmax(-1) if feed is None else feed[step])[:, None]
+        tok = tok.to(torch.int32)
+        fed.append(tok[:, 0])
+    return out, fed
+
+
+def _diff(ref: torch.Tensor, got: torch.Tensor) -> dict:
+    d = (got - ref).abs()
+    return {"max_abs_err": float(d.max()),
+            "rms_err": float(d.square().mean().sqrt()),
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def compare_model(cfg, *, batch: int, prompt: int, steps: int,
+                  seed: int = 0, dev: str = "cuda") -> list:
+    """``cfg`` (Yi-6B at full width, fewer layers): the same weights from
+    one seeded generator through the port on the CPU and on ``dev``, in f32
+    and bf16 compute, the card fed the CPU's greedy tokens. Then each of
+    ``MODEL_FAULTS`` in place of K6 on the card, fed the same tokens.
+    Returns each step's differences; ``check_model`` holds them."""
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(seed)
+    p_cpu = init_params(model.param_specs(), gen, cfg.param_dtype, "cpu")
+    p_dev = tree_map(lambda t: t.to(dev), p_cpu)
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, prompt)).astype(np.int32))
+    out = []
+    for dname in ("float32", "bfloat16"):
+        m = build_model(cfg.with_(compute_dtype=dname))
+
+        def run(d, params, feed=None):
+            cache = init_params(m.cache_specs(batch, prompt + steps), None,
+                                cfg.param_dtype, d)
+            return _greedy_logits(m, params, cache, tokens, steps, d, feed)
+
+        t0 = time.perf_counter()
+        ref, fed = run("cpu", m.compute_params(p_cpu))
+        cp = m.compute_params(p_dev)
+        got, _ = run(dev, cp, fed)
+        rec = {"compute_dtype": dname, "layers": cfg.num_layers,
+               "tol": MODEL_TOL[dname], "steps": []}
+        for r, g in zip(ref, got):
+            top2 = r.topk(2, dim=-1).values
+            # Two logits each within "max" of the CPU's keep their order
+            # when their gap is wider than twice that.
+            clear = (top2[:, 0] - top2[:, 1]) > 2 * MODEL_TOL[dname]["max"]
+            same = r.argmax(-1) == g.argmax(-1)
+            rec["steps"].append({**_diff(r, g),
+                                 "logits_rms": float(r.square().mean().sqrt()),
+                                 "clear_rows": int(clear.sum()),
+                                 "tokens_equal": int(same.sum()),
+                                 "clear_tokens_equal": bool(same[clear].all())})
+        rec["faults"] = {}
+        for name, (make, _) in MODEL_FAULTS.items():
+            with patched(port_attention, "flash_attention", make):
+                bad, _ = run(dev, cp, fed)
+            rec["faults"][name] = [_diff(r, b) for r, b in zip(ref, bad)]
+        rec["seconds"] = time.perf_counter() - t0
+        out.append(rec)
+        del cp
+    return out
+
+
+def _breaks(steps, tol) -> bool:
+    return any(not s["finite"] or s["max_abs_err"] > tol["max"]
+               or s["rms_err"] > tol["rms"] for s in steps)
+
+
+def check_model(runs) -> None:
+    """Raises unless every sound step is finite and within both limits with
+    the clear greedy tokens equal, and every fault breaks a limit in the
+    compute dtypes ``MODEL_FAULTS`` lists for it."""
+    for rec in runs:
+        dname, tol = rec["compute_dtype"], rec["tol"]
+        for i, s in enumerate(rec["steps"]):
+            if _breaks([s], tol):
+                raise AssertionError(f"model {dname} step {i}: card vs CPU "
+                                     f"logits {s} outside {tol}")
+            if not s["clear_tokens_equal"]:
+                raise AssertionError(f"model {dname} step {i}: greedy "
+                                     f"tokens differ where the gap is clear")
+        for name, steps in rec["faults"].items():
+            if dname in MODEL_FAULTS[name][1] and not _breaks(steps, tol):
+                raise AssertionError(f"model {dname}: the fault {name} stays "
+                                     f"inside the limits {tol}")
+
+
 # --------------------------- main --------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs one NVIDIA GPU", file=sys.stderr)
         return 2
+    # f32 products in full f32 on the card (no TF32), as on the CPU.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -750,6 +1180,14 @@ def main() -> int:
     timing = time_kernels(checked["timed"])
     emit({"phase": "kernels", "card": card, "max_abs_err": checked["err"],
           "view_bytes": checked["view_bytes"], "timing": timing})
+    # K6 at the serving path's shapes and two long prefills, bf16 and f32.
+    t0 = time.perf_counter()
+    attn = check_attention(torch.Generator(device="cuda").manual_seed(0))
+    emit({"phase": "kernels_attention", "card": card, "tol": ATTN_TOL,
+          "seconds": time.perf_counter() - t0, "cases": attn})
+    checked["err"]["flash_attention"] = max(c["max_abs_err"]
+                                            for c in attn.values())
+    timing["flash_attention"] = attn[ATTN_REPORTED]
 
     # Staged service phase (device pool off): the default path.
     service_kw = dict(n_keys=1 << 20, batch=4096, n_mixed=256, gets=2048,
@@ -834,9 +1272,50 @@ def main() -> int:
               "launches": launched,
               "seconds": time.perf_counter() - t0, "identical": True})
 
+    # Serve phase: the serving entry point at Yi-6B's full width with the
+    # reference's defaults (64 requests, batch 4, prompt 48, 16 tokens);
+    # every attention call of prefill and decode launches K6. The timed run
+    # has no profiler attached; a second, short run (8 requests, counts
+    # not read) is profiled over 5 decode steps.
+    torch.cuda.empty_cache()
+    yi = get_config("yi-6b")
+    argv = ["--arch", "yi-6b", "--device", "cuda", "--seed", "0"]
+    served = run_serve(argv)
+    served.update(param_bytes(yi))
+    for ln in served["lines"]:
+        print(ln, flush=True)
+    emit({"phase": "serve", "card": card, **served})
+    want = yi.num_layers * (1 + 16) * (64 // 4)
+    if served["launches"]["flash_attention"] != want:
+        raise AssertionError(f"serve phase launched flash_attention "
+                             f"{served['launches']['flash_attention']} times, "
+                             f"not {want}")
+    if not served["logits_finite"]:
+        raise AssertionError("serve phase produced non-finite logits")
+    torch.cuda.empty_cache()
+    profiled = run_serve(argv + ["--requests", "8"], profile_from=20,
+                         n_profile=5)
+    emit({"phase": "serve_profile", "card": card,
+          "argv": profiled["argv"], "profile": profiled["profile"],
+          "logits_finite": profiled["logits_finite"]})
+    if not profiled["logits_finite"]:
+        raise AssertionError("profiled serve run produced non-finite logits")
+    del profiled
+    torch.cuda.empty_cache()
+
+    # Card-vs-CPU model phase: Yi-6B at full width, 2 layers (depth cut),
+    # in f32 and bf16 compute, with the faults it must see.
+    t0 = time.perf_counter()
+    model_cmp = compare_model(yi.with_(num_layers=MODEL_LAYERS), batch=4,
+                              prompt=48, steps=8)
+    emit({"phase": "model", "seconds": time.perf_counter() - t0,
+          "runs": model_cmp})
+    check_model(model_cmp)
+
     launches = {**staged["launches"],
                 **{k: pooled["launches"][k]
-                   for k in ("probe_tier", "probe_store")}}
+                   for k in ("probe_tier", "probe_store")},
+                "flash_attention": served["launches"]["flash_attention"]}
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k][0],
          "replaces": SOURCES[k][1], "launches": launches[k],

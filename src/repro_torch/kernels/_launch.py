@@ -7,7 +7,7 @@ import torch
 # adds one where it launches its kernel and nowhere else, so a run that
 # zeroes these first shows which kernels its path went through.
 LAUNCHES = {"merge_pair": 0, "bloom_build": 0, "bloom_probe": 0,
-            "probe_tier": 0, "probe_store": 0}
+            "probe_tier": 0, "probe_store": 0, "flash_attention": 0}
 
 
 def on_card(*tensors: torch.Tensor) -> bool:

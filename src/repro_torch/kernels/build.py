@@ -24,8 +24,8 @@ BUILD_DIR = _PKG / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
-_P, _I64, _I32, _INT = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
-                        ctypes.c_int)
+_P, _I64, _I32, _INT, _F32 = (ctypes.c_void_p, ctypes.c_int64,
+                              ctypes.c_int32, ctypes.c_int, ctypes.c_float)
 # C entry points: argument types, each returning cudaGetLastError().
 SIGNATURES = {
     "merge_pair": [_P, _P, _I64, _P, _P, _I64, _P, _P, _P, _P],
@@ -33,6 +33,8 @@ SIGNATURES = {
     "bloom_probe": [_P, _I32, _INT, _P, _I64, _P, _P],
     "probe_tier": [_P] * 7 + [_INT, _P, _P, _I64, _P, _P],
     "probe_store": [_P] * 8 + [_I64, _INT, _P, _P, _I64, _P, _P],
+    "flash_attention": [_P] * 4 + [_I64] * 18 + [_INT, _INT, _F32, _F32,
+                                                 _INT, _P],
 }
 
 

@@ -1,0 +1,161 @@
+"""CausalLM for the dense family, as in the reference
+(``repro.models.transformer``): the same param and cache trees (per-slot
+params stacked ``[n_super, ...]``), with the layer stack run as a Python
+loop over the stacked params (no ``scan``, no ``remat``: there is no
+backward pass here, and no mesh to constrain to).
+
+The other families (moe, ssm, hybrid, encdec, vlm) are not ported yet
+(ROADMAP Queue 1, item 9).
+"""
+from __future__ import annotations
+
+import torch
+
+from .attention import attention_block, attn_spec, padded_heads
+from .layers import (P, embed, embed_spec, mlp, mlp_spec, rmsnorm,
+                     rmsnorm_spec, softcap, unembed)
+from .params import tree_map
+
+
+# ----------------------------- slot layout -----------------------------------
+def block_slots(cfg) -> list:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported (ROADMAP Queue 1, item 9)")
+    return [f"attn:{t}" for t in cfg.attn_types]
+
+
+def n_super(cfg) -> int:
+    period = len(block_slots(cfg))
+    if cfg.num_layers % period:
+        raise ValueError(f"{cfg.num_layers} layers do not fill slots of "
+                         f"{period}")
+    return cfg.num_layers // period
+
+
+def _slot_spec(cfg, slot: str) -> dict:
+    d = cfg.d_model
+    return {"ln": rmsnorm_spec(d), "attn": attn_spec(cfg),
+            "ln2": rmsnorm_spec(d), "mlp": mlp_spec(d, cfg.d_ff)}
+
+
+def _slot_cache_spec(cfg, slot: str, batch: int, max_len: int):
+    kv, hd = padded_heads(cfg)[1], cfg.resolved_head_dim
+    if cfg.kv_layout != "sd":
+        raise NotImplementedError(
+            f"kv_layout {cfg.kv_layout!r} is not ported (ROADMAP Queue 1, "
+            f"item 3: only 'sd' is on the serving path)")
+    shape = (batch, max_len, kv, hd)
+    axes = ("batch", "kv_seq", "kv_heads", "head_dim")
+    return {"k": P(shape, axes, init="zeros", dtype=cfg.compute_dtype),
+            "v": P(shape, axes, init="zeros", dtype=cfg.compute_dtype)}
+
+
+def _apply_slot(cfg, slot, p, x, positions, pos0, cache):
+    window = cfg.window if slot == "attn:local" else 0
+    h_in = rmsnorm(p["ln"], x, cfg.norm_eps)
+    y, nc = attention_block(cfg, p["attn"], h_in, positions, pos0,
+                            layer_window=window, cache=cache)
+    x = x + y
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + mlp(p["mlp"], h, x.dtype), nc
+
+
+def _stack(n: int, tree):
+    return tree_map(lambda s: P((n,) + s.shape, ("layers",) + s.axes,
+                                init=s.init, scale=s.scale, dtype=s.dtype),
+                    tree)
+
+
+# ----------------------------- the model --------------------------------------
+class CausalLM:
+    """Decoder-only LM of the dense family."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.slots = block_slots(cfg)
+        self.n_super = n_super(cfg)
+
+    # -- specs ------------------------------------------------------------------
+    def param_specs(self) -> dict:
+        cfg = self.cfg
+        return {
+            "embed": embed_spec(cfg.padded_vocab, cfg.d_model),
+            "final_norm": rmsnorm_spec(cfg.d_model),
+            "blocks": [_stack(self.n_super, _slot_spec(cfg, s))
+                       for s in self.slots],
+        }
+
+    def cache_specs(self, batch: int, max_len: int) -> dict:
+        return {"blocks": [
+            _stack(self.n_super, _slot_cache_spec(self.cfg, s, batch,
+                                                  max_len))
+            for s in self.slots]}
+
+    def compute_params(self, params) -> dict:
+        """A copy of ``params`` with each weight that the forward casts to
+        the compute dtype cast once (every leaf but the norm scales, which
+        the forward reads in f32). Same values as the reference's per-call
+        ``.astype``; the same tensors when the dtypes agree."""
+        dt = getattr(torch, self.cfg.compute_dtype)
+
+        def walk(tree, key=""):
+            if isinstance(tree, dict):
+                return {k: walk(v, k) for k, v in tree.items()}
+            if isinstance(tree, list):
+                return [walk(v, key) for v in tree]
+            return tree if key == "scale" else tree.to(dt)
+
+        return walk(params)
+
+    # -- forward ------------------------------------------------------------------
+    def _run_blocks(self, params, x, positions, pos0: int, cache):
+        for li in range(self.n_super):
+            for i, slot in enumerate(self.slots):
+                p = tree_map(lambda t: t[li], params["blocks"][i])
+                c = (None if cache is None else
+                     {n: t[li] for n, t in cache["blocks"][i].items()})
+                x, _ = _apply_slot(self.cfg, slot, p, x, positions, pos0, c)
+        return x
+
+    def _logits(self, params, x):
+        cfg = self.cfg
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        logits = softcap(unembed(params["embed"], x, x.dtype).float(),
+                         cfg.logit_softcap)
+        if cfg.padded_vocab != cfg.vocab_size:   # mask vocab padding
+            pad = torch.arange(cfg.padded_vocab, device=x.device) \
+                >= cfg.vocab_size
+            logits = logits.masked_fill(pad, -1e30)
+        return logits
+
+    def _positions(self, b: int, s: int, pos0: int, device):
+        return (pos0 + torch.arange(s, device=device))[None, :].expand(b, s)
+
+    def apply(self, params, tokens):
+        """Teacher-forcing forward: tokens [B,S] -> logits [B,S,V]."""
+        x = embed(params["embed"], tokens,
+                  getattr(torch, self.cfg.compute_dtype))
+        b, s, _ = x.shape
+        x = self._run_blocks(params, x, self._positions(b, s, 0, x.device),
+                             0, None)
+        return self._logits(params, x)
+
+    def prefill(self, params, tokens, cache):
+        """Prompt tokens [B,S] -> (last-position logits [B,1,V], cache);
+        the cache is written in place."""
+        x = embed(params["embed"], tokens,
+                  getattr(torch, self.cfg.compute_dtype))
+        b, s, _ = x.shape
+        x = self._run_blocks(params, x, self._positions(b, s, 0, x.device),
+                             0, cache)
+        return self._logits(params, x[:, -1:]), cache
+
+    def decode_step(self, params, token, cache, pos: int):
+        """token: [B,1]; pos: host int position. One decode step; the
+        cache is written in place."""
+        x = embed(params["embed"], token,
+                  getattr(torch, self.cfg.compute_dtype))
+        positions = self._positions(x.shape[0], 1, pos, x.device)
+        x = self._run_blocks(params, x, positions, pos, cache)
+        return self._logits(params, x), cache

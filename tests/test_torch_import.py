@@ -41,7 +41,10 @@ def test_import_loads_no_jax_and_no_reference_module():
                 "repro_torch.core.service.service",
                 "repro_torch.kernels.merge.merge",
                 "repro_torch.kernels.bloom.bloom",
-                "repro_torch.kernels.build"):
+                "repro_torch.kernels.build",
+                "repro_torch.kernels.attention.attention",
+                "repro_torch.models.transformer",
+                "repro_torch.launch.serve"):
         assert mod in got["modules"]
 
 
