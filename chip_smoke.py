@@ -14,7 +14,10 @@
    (flash_attention) against its plain version in bf16 (2e-2) and f32
    (1e-5) at the serving path's prefill and decode shapes (Yi-6B heads),
    a 4096-token Yi-6B prefill and a Gemma-2-27B local layer (8192 tokens,
-   window 4096, softcap 50), timed beside SDPA with the same mask.
+   window 4096, softcap 50), timed beside SDPA with the same mask; in
+   bf16 also the relative RMS difference (``ATTN_REL_RMS``), and at the
+   serving shapes the p-rounding check (``P_ROUNDING_CASES``); and,
+   checked but not timed, the edges of its paths (``ATTN_EDGES``).
 3. Staged service phase: ``StorageService`` at the paper's geometry
    (StoreConfig defaults: 16 KB pages, 1 KB entries, 512 MB memory, 128 MB
    write memory, device pool off), partitioned memory component, OPT
@@ -757,6 +760,14 @@ def compare_replays(a: dict, b: dict) -> None:
 # per key tile, the plain version once over all keys), f32 by 1e-5
 # (summation order only).
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+# bf16 also: RMS(kernel - plain) / RMS(plain) at most ATTN_REL_RMS. At
+# long rows a typical |output| is 0.03-0.05, so 2e-2 alone would pass a
+# kernel that drops a key tile or skips a rescale. The limit lies between
+# the largest reading of the sound kernel (2.35e-3, decode_long_cache) and
+# the smallest of a fault in its place where the fault changes anything
+# (1.12e-2, no rescale at hd80_gqa3_sq_lt_sk; 0.15 or more at the long
+# cases): tools/k6_faults.py on an H100, PERF.md section 6.
+ATTN_REL_RMS = 5e-3
 YI_HEADS = {"h": 32, "kv": 4, "hd": 128}
 # The serving path's prefill (48 prompt tokens over its cache of 64 rows)
 # and decode (one query over rows 0..pos of that cache), a 4096-token
@@ -769,6 +780,54 @@ ATTN_CASES = [
     ("gemma2_local_8192", dict(b=1, sq=8192, sk=8192, causal=True, h=32,
                                kv=16, hd=128, window=4096, softcap=50.0)),
 ]
+# Edges of K6's paths, checked against the plain version in both dtypes
+# and not timed: head dims 16/64/80, H == KV and H/KV = 2, 3 or 8, query
+# counts that are no multiple of a block's rows, Sq > Sk with a window
+# (rows that keep no key), window with softcap, decode with H == KV and
+# over a cache longer than one key tile, k/v as row views at an offset
+# into a wider cache ("lo"), and k/v whose head stride is no multiple of
+# 8 elements ("pad": bf16 then takes the CUDA-core kernel).
+ATTN_EDGES = [
+    ("hd16_h_eq_kv", dict(b=2, sq=37, sk=53, h=4, kv=4, hd=16,
+                          causal=True)),
+    ("hd64_gqa2_window_softcap", dict(b=2, sq=100, sk=100, h=8, kv=4,
+                                      hd=64, causal=True, window=16,
+                                      softcap=30.0)),
+    ("hd80_gqa3_sq_lt_sk", dict(b=2, sq=70, sk=90, h=6, kv=2, hd=80,
+                                causal=True)),
+    ("sq_gt_sk_window", dict(b=2, sq=64, sk=32, h=4, kv=2, hd=64,
+                             causal=True, window=8)),
+    ("gqa8_sq_gt_sk_window_softcap", dict(b=1, sq=200, sk=72, h=32, kv=4,
+                                          hd=128, causal=True, window=40,
+                                          softcap=50.0)),
+    ("decode_h_eq_kv_softcap", dict(b=3, sq=1, sk=37, h=8, kv=8, hd=128,
+                                    causal=False, softcap=50.0)),
+    ("decode_long_cache", dict(b=2, sq=1, sk=1000, h=32, kv=4, hd=128,
+                               causal=False)),
+    ("prefill_cache_view", dict(b=2, sq=48, sk=80, h=32, kv=4, hd=128,
+                                causal=True, lo=16)),
+    ("decode_cache_view", dict(b=4, sq=1, sk=40, h=32, kv=4, hd=128,
+                               causal=False, lo=9)),
+    ("head_stride_pad", dict(b=2, sq=33, sk=33, h=4, kv=2, hd=16,
+                             causal=True, pad=4)),
+    # Enough row blocks for the long-prefill tiling at hd 16, 64 and 80.
+    ("hd16_long", dict(b=8, sq=300, sk=300, h=8, kv=8, hd=16, causal=True)),
+    ("hd64_long_h_eq_kv_window", dict(b=4, sq=1000, sk=1000, h=16, kv=16,
+                                      hd=64, causal=True, window=300)),
+    ("hd80_long_gqa3_softcap", dict(b=4, sq=600, sk=600, h=12, kv=4, hd=80,
+                                    causal=True, softcap=30.0)),
+]
+# The p-rounding check: at these bf16 cases one key tile of the kernel
+# holds every key, so the kernel rounds the same p as the plain version,
+# and the RMS of (kernel - plain) must stay below P_ROUNDING_SHARE of the
+# RMS of (plain - the unrounded control _p_unrounded). A kernel that keeps
+# p in f32 reads about that whole gap (tools/k6_faults.py). The gap must
+# be at least P_ROUNDING_MIN_GAP, the floor tests/test_torch_attention.py
+# holds it to on the CPU, or the check could not tell the two apart.
+P_ROUNDING_CASES = ("serve_prefill", "serve_decode_pos47",
+                    "serve_decode_pos63")
+P_ROUNDING_SHARE = 0.5
+P_ROUNDING_MIN_GAP = 2e-4
 # The kernels line reports the serving path's most frequent call: decode
 # at the last position of its 64-row cache, in the compute dtype.
 ATTN_REPORTED = "serve_decode_pos63/bfloat16"
@@ -787,16 +846,81 @@ def _kept_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
 
 def _attn_inputs(shape: dict, dtype, gen):
     """q, and k, v as row views of a cache of 64 rows where the serving
-    path reads one (the model's own strided layout), else whole tensors."""
+    path reads one (the model's own strided layout), else whole tensors;
+    with ``lo``, rows lo..lo+sk-1 of a wider cache; with ``pad``, heads
+    padded by that many elements, so the head stride is hd + pad."""
     b, sq, sk, h, kv, hd = (shape[k] for k in ("b", "sq", "sk", "h", "kv",
                                                "hd"))
-    rows = max(sk, SERVE_CACHE_ROWS)
+    lo, pad = shape.get("lo", 0), shape.get("pad", 0)
+    rows = max(lo + sk, SERVE_CACHE_ROWS)
 
     def mk(*s):
         return torch.randn(*s, generator=gen, device="cuda").to(dtype)
 
-    q = mk(b, sq, h, hd)
-    return q, mk(b, rows, kv, hd)[:, :sk], mk(b, rows, kv, hd)[:, :sk]
+    def cache():
+        return mk(b, rows, kv, hd + pad)[:, lo:lo + sk, :, :hd]
+
+    return mk(b, sq, h, hd), cache(), cache()
+
+
+def _attn_kw(shape: dict) -> dict:
+    return {"causal": shape["causal"], "window": shape.get("window", 0),
+            "softcap": shape.get("softcap", 0.0)}
+
+
+def _rms(x) -> float:
+    return float(x.float().pow(2).mean().sqrt())
+
+
+def p_rounding(got, plain, control) -> dict:
+    """RMS of (got - plain) against P_ROUNDING_SHARE of the RMS of
+    (plain - control); ``ok`` when it stays below and that gap is at
+    least P_ROUNDING_MIN_GAP."""
+    near, gap = _rms(got.float() - plain.float()), _rms(
+        plain.float() - control.float())
+    return {"rms_vs_plain": near, "rms_plain_vs_unrounded": gap,
+            "limit": P_ROUNDING_SHARE * gap,
+            "ok": gap >= P_ROUNDING_MIN_GAP and near < P_ROUNDING_SHARE * gap}
+
+
+def attention_error(got, want) -> dict:
+    """The largest difference of K6's output from its plain version's, and
+    in bf16 the relative RMS difference."""
+    diff = got.float() - want.float()
+    out = {"max_abs_err": float(diff.abs().max())}
+    if got.dtype == torch.bfloat16:
+        out["rel_rms"] = _rms(diff) / _rms(want)
+    return out
+
+
+def _held(name: str, shape: dict, dname: str, gen):
+    """K6 and its plain version on fresh inputs of ``shape``: (q, k, v),
+    both outputs and attention_error; raises beyond ATTN_TOL or, in bf16,
+    ATTN_REL_RMS."""
+    q, k, v = _attn_inputs(shape, getattr(torch, dname), gen)
+    kw = _attn_kw(shape)
+    got = attn_k.flash_attention(q, k, v, **kw)
+    want = attn_k.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = attention_error(got, want)
+    if not err["max_abs_err"] <= ATTN_TOL[dname]:
+        raise AssertionError(f"flash_attention {name} {dname}: max abs err "
+                             f"{err['max_abs_err']} > {ATTN_TOL[dname]}")
+    if not err.get("rel_rms", 0.0) <= ATTN_REL_RMS:
+        raise AssertionError(f"flash_attention {name} {dname}: relative RMS "
+                             f"err {err['rel_rms']} > {ATTN_REL_RMS}")
+    return (q, k, v), got, want, err
+
+
+def check_attention_edges(gen) -> dict:
+    """Hold K6 against its plain version at every ATTN_EDGES case in bf16
+    and f32 (not timed)."""
+    out = {}
+    for name, shape in ATTN_EDGES:
+        for dname in ("bfloat16", "float32"):
+            err = _held(name, shape, dname, gen)[3]
+            out[f"{name}/{dname}"] = {"shape": shape, **err}
+    return out
 
 
 def check_attention(gen) -> dict:
@@ -807,18 +931,17 @@ def check_attention(gen) -> dict:
     from torch.nn.functional import scaled_dot_product_attention as sdpa
     out = {}
     for name, shape in ATTN_CASES:
-        kw = {"causal": shape["causal"], "window": shape.get("window", 0),
-              "softcap": shape.get("softcap", 0.0)}
+        kw = _attn_kw(shape)
         for dname in ("bfloat16", "float32"):
-            q, k, v = _attn_inputs(shape, getattr(torch, dname), gen)
-            got = attn_k.flash_attention(q, k, v, **kw)
-            want = attn_k.flash_attention_plain(q, k, v, **kw)
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
+            (q, k, v), got, want, err = _held(name, shape, dname, gen)
+            rounding = None
+            if dname == "bfloat16" and name in P_ROUNDING_CASES:
+                rounding = p_rounding(got, want, _p_unrounded(q, k, v, **kw))
             del got, want
-            if not err <= ATTN_TOL[dname]:
-                raise AssertionError(f"flash_attention {name} {dname}: max "
-                                     f"abs err {err} > {ATTN_TOL[dname]}")
+            if rounding and not rounding["ok"]:
+                raise AssertionError(f"flash_attention {name}: p not rounded "
+                                     f"as the plain version rounds it, or "
+                                     f"the check cannot tell: {rounding}")
             reps = 5 if shape["sq"] >= 4096 else 25
             # Bytes: q read and o written once, and the k and v rows that
             # some query keeps (rows 0..min(sq, sk)-1 when causal).
@@ -840,7 +963,7 @@ def check_attention(gen) -> dict:
                     is_causal=kw["causal"] and mask is None,
                     scale=shape["hd"] ** -0.5, enable_gqa=True), reps)
             out[f"{name}/{dname}"] = {
-                "shape": shape, "max_abs_err": err, "tol": ATTN_TOL[dname],
+                "shape": shape, **err, "tol": ATTN_TOL[dname],
                 "ms": cuda_ms(lambda: attn_k.flash_attention(q, k, v, **kw),
                               reps),
                 "device_ms": kernel_device_ms(
@@ -850,6 +973,8 @@ def check_attention(gen) -> dict:
                     lambda: attn_k.flash_attention_plain(q, k, v, **kw), reps),
                 **bound(nbytes, 4 * shape["hd"] * pairs, rate),
                 "kept_pairs": pairs, "library_ms": lib}
+            if rounding:
+                out[f"{name}/{dname}"]["p_rounding"] = rounding
             del q, k, v
             torch.cuda.empty_cache()
     return out
@@ -1182,11 +1307,14 @@ def main() -> int:
           "view_bytes": checked["view_bytes"], "timing": timing})
     # K6 at the serving path's shapes and two long prefills, bf16 and f32.
     t0 = time.perf_counter()
-    attn = check_attention(torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    attn = check_attention(gen)
+    edges = check_attention_edges(gen)
     emit({"phase": "kernels_attention", "card": card, "tol": ATTN_TOL,
-          "seconds": time.perf_counter() - t0, "cases": attn})
-    checked["err"]["flash_attention"] = max(c["max_abs_err"]
-                                            for c in attn.values())
+          "seconds": time.perf_counter() - t0, "cases": attn,
+          "edges": edges})
+    checked["err"]["flash_attention"] = max(
+        c["max_abs_err"] for c in [*attn.values(), *edges.values()])
     timing["flash_attention"] = attn[ATTN_REPORTED]
 
     # Staged service phase (device pool off): the default path.

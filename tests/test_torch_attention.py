@@ -83,6 +83,33 @@ def test_flash_non_causal_matches_pallas_reference(dtype):
     _close(got, want, TOL[dtype])
 
 
+def _rms(x) -> float:
+    return float(np.sqrt(np.mean(np.square(np.asarray(x, np.float64)))))
+
+
+@pytest.mark.parametrize("sq,sk,causal", [(48, 64, True), (1, 48, False),
+                                          (1, 64, False)])
+def test_p_rounding_is_visible_at_the_serving_shapes(sq, sk, causal):
+    """Calibration of the card's p-rounding check (chip_smoke.py): at the
+    serving path's prefill and decode shapes in bf16 (Yi-6B heads, one key
+    tile holding every key), the plain version and the unrounded control
+    (p kept in f32 before p @ v) differ by an RMS of at least 2e-4 (about
+    half the smallest reading, 4.3e-4), while the Pallas kernel, which
+    rounds p as the function says, stays within a tenth of that gap of
+    the plain version: far inside the card check's half."""
+    rng = np.random.default_rng(sq + sk)
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(rng, 4, sq, sk, 32, 4, 128),
+                                       BF16)
+    plain = attn_k.flash_attention_plain(tq, tk, tv, causal=causal)
+    control = attn_k.flash_attention_plain(
+        tq.float(), tk.float(), tv.float(), causal=causal).to(tq.dtype)
+    pallas = np.asarray(ref_flash(jq, jk, jv, causal=causal, interpret=True),
+                        np.float32)
+    gap = _rms(plain.float().numpy() - control.float().numpy())
+    assert gap >= 2e-4
+    assert _rms(pallas - plain.float().numpy()) < 0.1 * gap
+
+
 @pytest.mark.parametrize("pos,window", [(0, 0), (5, 0), (47, 0), (79, 0),
                                         (5, 32), (40, 32), (79, 32)])
 def test_decode_form_matches_full_attention_over_cache(pos, window):
