@@ -8,9 +8,14 @@
 2. Kernel phase: holds each kernel (K1 merge_pair, K2 bloom_build, K5
    bloom_probe, K4 probe_tier, K3 probe_store) against its plain PyTorch
    version on the card, with exact integer equality, at the main path's
-   shapes (K4 on a tier of 512 tables of 2048 keys, K3 on a store of six
-   tiers and 512 tables; 4096 queries, half present), and times kernel,
-   plain version and a library yardstick with CUDA events. Then K6
+   shapes (K2 at 256, 2048, 16384 and 2**20 keys, on both sides of its
+   two paths; K5 on one filter and, in its tier form, on a tier of 512 tables
+   of 2048 keys, a one-table tier and a tier of five slot counts; K4 on a
+   tier of 512 tables of 2048 keys, K3 on a store of six tiers and 512
+   tables; 4096 queries, half present), and times kernel, plain version
+   and a library yardstick with CUDA events; then the host nanoseconds
+   of each part of a K2 call and of the staged path's K5 call
+   (``host_split``). Then K6
    (flash_attention) against its plain version in bf16 (2e-2) and f32
    (1e-5) at the serving path's prefill and decode shapes (Yi-6B heads),
    a 4096-token Yi-6B prefill and a Gemma-2-27B local layer (8192 tokens,
@@ -27,7 +32,9 @@
    submits (2048 Gets + 2048 Puts, zipfian 0.99, plus 64 Deletes and 16
    Scans of 100). Every Get and Scan is checked against a dict oracle,
    and K1, K2 and K5 must have launched in this phase (the wrappers'
-   launch counts are zeroed just before it).
+   launch counts are zeroed just before it); K5 runs in its tier form,
+   one launch per (tier, Get batch), and its launches per submit are
+   printed.
 4. Pool service phase: the same stream with a 2 GiB device page pool and
    store-scope fused reads, then a read-only tail of 32 submits of 4096
    zipfian Gets (YCSB C). Every Get, Scan, IOStats counter (but the
@@ -61,8 +68,9 @@
 Prints JSON lines; the ``kernels`` line lists each kernel with its launch
 count on its main path (K1, K2, K5: the staged service phase; K3 and K4:
 the pool phase; K6: the serve phase), its time, its bound and its
-yardsticks. The last line is ``{"ok": true, "device":
-{...}}``. Exits non-zero without a GPU, and when any phase fails.
+yardsticks (K5's at its tier form's timed shape). The last line is
+``{"ok": true, "device": {...}}``. Exits non-zero without a GPU, and when
+any phase fails.
 """
 from __future__ import annotations
 
@@ -87,8 +95,8 @@ from repro_torch.core.durability.wal import encode_record  # noqa: E402
 from repro_torch.core.engine.backend import (  # noqa: E402
     assign_bounds, bloom_sizing)
 from repro_torch.core.engine.torch_backend import TorchBackend  # noqa: E402
-from repro_torch.core.lsm.sstable import (TOMBSTONE,  # noqa: E402
-                                          partition_run, reset_sst_ids)
+from repro_torch.core.lsm.sstable import (  # noqa: E402
+    TOMBSTONE, partition_run, reset_sst_ids, sstable_from_run)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels._launch import LAUNCHES  # noqa: E402
@@ -133,6 +141,13 @@ SOURCES = {
     "flash_attention": ("src/repro_torch/csrc/attention.cu",
                         "src/repro/kernels/attention/flash.py:66"),
 }
+# K2 is held exactly at these key counts, on both sides of the size at
+# which bloom.cu leaves its shared path for its global one
+# (kSharedMaxSlots): 256, the engine's tables (2,048), the largest filter
+# one block's shared memory could hold (16,384) and 2**20.
+BLOOM_BUILD_KEYS = (256, 2048, 16384, 1 << 20)
+# K5's tier form on a tier of tables of these sizes (several slot counts).
+MIXED_TABLE_KEYS = (100, 300, 1000, 2048, 5000, 17, 700)
 # The pool service phase: a device page pool of 2 GiB of logical 16 KB
 # pages (131,072), room for every disk table of the 2**20-key store.
 POOL_BYTES = 2 << 30
@@ -322,15 +337,23 @@ def check_kernels(dev, *, merge_shapes, ingest_n: int, sst_keys: int,
     if e:
         raise AssertionError(f"merge_pair differs on the ingest batch: {e}")
     # Bloom: one SSTable's keys, including keys beyond int32, a negative
-    # key and the tombstone payload as a key.
-    sk = np.unique(np.concatenate([rng.integers(0, 2**40, sst_keys - 3),
-                                   [2**31 + 5, -7, TOMBSTONE]]))
-    sk = T(sk)
+    # key and the tombstone payload as a key. K2 at sizes on both sides
+    # of its two paths.
+    for n in BLOOM_BUILD_KEYS:
+        k = T(bloom_keys(rng, n))
+        _, n_slots = bloom_sizing(len(k))
+        e = _max_abs_err([bloom_k.bloom_build(k, n_slots, K_HASHES)],
+                         [bloom_k.bloom_build_plain(k, n_slots, K_HASHES)])
+        err["bloom_build"] = max(err["bloom_build"], e)
+        if e:
+            raise AssertionError(f"bloom_build differs from its plain "
+                                 f"version at {n} keys")
+    sk = T(bloom_keys(rng, sst_keys))
     _, n_slots = bloom_sizing(len(sk))
     f = bloom_k.bloom_build(sk, n_slots, K_HASHES)
     fp = bloom_k.bloom_build_plain(sk, n_slots, K_HASHES)
-    err["bloom_build"] = _max_abs_err([f], [fp])
-    if err["bloom_build"]:
+    e = _max_abs_err([f], [fp])
+    if e:
         raise AssertionError("bloom_build differs from its plain version")
     q = torch.cat([sk[: n_queries // 2],
                    T(rng.integers(-2**40, 2**40, n_queries - n_queries // 2))])
@@ -340,11 +363,71 @@ def check_kernels(dev, *, merge_shapes, ingest_n: int, sst_keys: int,
     if err["bloom_probe"] or not bool(p[: n_queries // 2].all()):
         raise AssertionError("bloom_probe differs or gave a false negative")
     timed["bloom_build"] = (sk, n_slots)
-    timed["bloom_probe"] = (f, q)
+    timed["bloom_probe_single"] = (f, q)
+    bt = check_bloom_tier(dev, n_queries=n_queries, seed=seed + 2,
+                          tier_tables=lookup_kw["tier_tables"],
+                          table_keys=lookup_kw["table_keys"])
+    err["bloom_probe"] = max(err["bloom_probe"], bt["err"])
+    timed["bloom_probe"] = bt["timed"]
     lk = check_lookup(dev, n_queries=n_queries, seed=seed + 1, **lookup_kw)
     err.update(lk["err"])
     timed.update(lk["timed"])
     return {"err": err, "timed": timed, "view_bytes": lk["view_bytes"]}
+
+
+def bloom_keys(rng, n: int) -> np.ndarray:
+    """About ``n`` distinct int64 keys of one SSTable: keys beyond int32,
+    a negative key and the tombstone payload as a key."""
+    return np.unique(np.concatenate([rng.integers(0, 2**40, n - 3),
+                                     [2**31 + 5, -7, TOMBSTONE]]))
+
+
+def _tier_inputs(dev, tb, tables, q):
+    """K5's tier form over ``tables``: their filters (built by ``tb``),
+    the queries and each query's covering table (``assign_bounds``,
+    clipped), on ``dev``."""
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(dev)  # noqa: E731
+    filts = [tb.bloom_build(t.keys)[1] for t in tables]
+    ti, _ = assign_bounds(np.array([t.min_key for t in tables]),
+                          np.array([t.max_key for t in tables]), q)
+    return filts, T(q), T(ti)
+
+
+def check_bloom_tier(dev, *, tier_tables: int, table_keys: int,
+                     n_queries: int, seed: int = 0) -> dict:
+    """Hold K5's tier form (``bloom_probe_tier``) against its plain version
+    on a tier of ``tier_tables`` tables of ``table_keys`` keys (half the
+    queries present; the timed shape), on a one-table tier, and on a tier
+    whose tables have different slot counts."""
+    rng = np.random.default_rng(seed)
+    tb = TorchBackend(device=dev)
+    tier = _lookup_tiers(rng, [tier_tables], table_keys)[0]
+    # Tables of 100 to 5000 keys: five slot counts, 2,560 to 81,920.
+    k, v = _lookup_run(rng, sum(MIXED_TABLE_KEYS))
+    cuts = np.cumsum([0, *MIXED_TABLE_KEYS])
+    mixed = [sstable_from_run(k[a:b], v[a:b], 0, 0, 1024, 16 * KB)
+             for a, b in zip(cuts[:-1], cuts[1:])]
+    err, timed = 0, None
+    for what, tables in (("tier", tier), ("one table", tier[:1]),
+                         ("mixed slot counts", mixed)):
+        q = _lookup_queries(rng, tables, n_queries)
+        filts, qd, ti = _tier_inputs(dev, tb, tables, q)
+        got = bloom_k.bloom_probe_tier(filts, qd, ti, K_HASHES)
+        want = bloom_k.bloom_probe_tier_plain(filts, qd, ti, K_HASHES)
+        e = _max_abs_err([got], [want])
+        err = max(err, e)
+        if e or not bool(got[: n_queries // 2].all()):
+            raise AssertionError(f"bloom_probe_tier differs or gave a false "
+                                 f"negative ({what})")
+        if timed is None:
+            timed = (filts, qd, ti)
+    return {"err": err, "timed": timed}
+
+
+def _lookup_run(rng, n: int):
+    """One sorted run of ``n`` distinct keys beyond int32 and its values."""
+    k = np.sort(rng.choice(_key_of(np.arange(4 * n)), n, replace=False))
+    return k, rng.integers(0, 2**62, n)
 
 
 def time_kernels(timed: dict) -> dict:
@@ -381,10 +464,10 @@ def time_kernels(timed: dict) -> dict:
             lambda: bloom_k.bloom_build(sk, n_slots, K_HASHES),
             "bloom_build_kernel"),
         "shape": [len(sk), n_slots]}
-    f, q = timed["bloom_probe"]
+    f, q = timed["bloom_probe_single"]
     slots = bloom_k.bloom_slots_plain(q, f.numel(), K_HASHES).reshape(-1)
     flat = f.reshape(-1)
-    out["bloom_probe"] = {
+    out["bloom_probe_single"] = {
         "ms": cuda_ms(lambda: bloom_k.bloom_probe(f, q, K_HASHES)),
         "plain_ms": cuda_ms(lambda: bloom_k.bloom_probe_plain(f, q, K_HASHES)),
         **bound(len(q) * 8 + f.numel() + len(q), len(q) * K_HASHES),
@@ -393,6 +476,29 @@ def time_kernels(timed: dict) -> dict:
         "device_ms": kernel_device_ms(
             lambda: bloom_k.bloom_probe(f, q, K_HASHES), "bloom_probe_kernel"),
         "shape": [len(q), f.numel()]}
+    # K5's tier form, the staged path's: a tier's filters (20 KB a table)
+    # stay in L2, so what must cross device memory is the queries, their
+    # table indices and the filters' table (an address and a slot count a
+    # filter), read once, and the results. The yardstick gathers each
+    # query's slots, precomputed, from the filters concatenated.
+    filts, q, ti = timed["bloom_probe"]
+    ns = torch.tensor([x.numel() for x in filts], device=q.device)
+    slots = (bloom_k.bloom_slots_plain(q, ns[ti], K_HASHES)
+             + (torch.cumsum(ns, 0) - ns)[ti][:, None]).reshape(-1)
+    flat = torch.cat([x.reshape(-1) for x in filts])
+
+    def tier():
+        return bloom_k.bloom_probe_tier(filts, q, ti, K_HASHES)
+    out["bloom_probe"] = {
+        "ms": cuda_ms(tier),
+        "plain_ms": cuda_ms(lambda: bloom_k.bloom_probe_tier_plain(
+            filts, q, ti, K_HASHES)),
+        **bound(q.nbytes + ti.nbytes + 16 * len(filts) + len(q),
+                len(q) * K_HASHES),
+        "library_ms": cuda_ms(
+            lambda: torch.gather(flat, 0, slots).view(-1, K_HASHES).all(-1)),
+        "device_ms": kernel_device_ms(tier, "bloom_probe_kernel"),
+        "shape": [len(q), len(filts)]}
     # K4 and K3: the view's keys, values and filters stay in L2 across
     # calls (printed as view_bytes), so what must cross device memory is
     # the queries and assigned tables read once and the int64 fields
@@ -415,10 +521,92 @@ def time_kernels(timed: dict) -> dict:
     return out
 
 
+def _median_ns(fn, reps: int = 500) -> float:
+    """Median host nanoseconds of one call of ``fn`` (perf_counter_ns)."""
+    fn()
+    ts = []
+    for _ in range(reps):
+        t = time.perf_counter_ns()
+        fn()
+        ts.append(time.perf_counter_ns() - t)
+    torch.cuda.synchronize()
+    return float(np.median(ts))
+
+
+def host_split(timed: dict) -> dict:
+    """Host nanoseconds of each part of a K2 call (the timed 2,048 keys)
+    and of the staged path's K5 call (``TorchBackend.bloom_probe_tier`` on
+    the timed tier, host keys), beside the whole call. ``removed`` holds
+    the parts the wrappers no longer take, timed the same way: a
+    zero-filled filter and a ``torch.cuda.Stream`` object per call; and
+    one single-table backend probe, as the per-table staged loop made."""
+    from repro_torch.kernels._launch import expect, on_card, stream_of
+    lib = build.library()
+    sk, n_slots = timed["bloom_build"]
+    shape = (128, n_slots // 128)
+    filt = torch.empty(shape, dtype=torch.bool, device=sk.device)
+    st = stream_of(sk)
+    k2 = {
+        "checks": _median_ns(lambda: (expect(sk, "keys", torch.int64),
+                                      bloom_k._check_slots(n_slots))),
+        "on_card": _median_ns(lambda: on_card(sk)),
+        "alloc_empty": _median_ns(lambda: torch.empty(
+            shape, dtype=torch.bool, device=sk.device)),
+        "stream_raw": _median_ns(lambda: stream_of(sk)),
+        "library_attr": _median_ns(lambda: build.library().bloom_build),
+        "ctypes_launch": _median_ns(lambda: lib.bloom_build(
+            sk.data_ptr(), len(sk), n_slots, K_HASHES, filt.data_ptr(), st)),
+        "check_and_count": _median_ns(lambda: build.check(0, "bloom_build")),
+        "whole": _median_ns(lambda: bloom_k.bloom_build(sk, n_slots,
+                                                        K_HASHES)),
+        "removed": {
+            "alloc_zeros": _median_ns(lambda: torch.zeros(
+                shape, dtype=torch.bool, device=sk.device)),
+            "stream_object": _median_ns(
+                lambda: torch.cuda.current_stream(sk.device).cuda_stream)}}
+    filts, q, ti = timed["bloom_probe"]
+    dev = q.device
+    tb = TorchBackend(device=dev)
+    tuples = [("torch", f) for f in filts]
+    qn, tn = q.cpu().numpy(), ti.cpu().numpy()
+    qh, th = torch.from_numpy(qn), torch.from_numpy(tn)
+    table = bloom_k.tier_table(filts)
+    n, t = len(qn), len(table)
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    packed = torch.cat([torch.from_numpy(np.array(table, np.int64)), qh,
+                        th]).to(dev)
+    first = tn == 0
+    k5 = {
+        "tables": len(filts), "queries": n,
+        "unwrap": _median_ns(lambda: [tb._filter(f) for f in tuples]),
+        "host_tensors": _median_ns(lambda: (
+            torch.from_numpy(np.ascontiguousarray(qn, np.int64)),
+            torch.from_numpy(np.ascontiguousarray(tn, np.int64)))),
+        "checks_and_table": _median_ns(lambda: (
+            expect(qh, "keys", torch.int64), expect(th, "tidx", torch.int64),
+            bloom_k.tier_table(filts), on_card(filts[0]))),
+        "pack_and_copy": _median_ns(lambda: torch.cat([
+            torch.from_numpy(np.array(table, np.int64)), qh, th]).to(dev)),
+        "alloc_empty": _median_ns(lambda: torch.empty(
+            n, dtype=torch.bool, device=dev)),
+        "ctypes_launch": _median_ns(lambda: lib.bloom_probe_tier(
+            packed[:t].data_ptr(), len(filts), K_HASHES,
+            packed[t:t + n].data_ptr(), packed[t + n:].data_ptr(), n,
+            out.data_ptr(), st)),
+        "copy_back": _median_ns(lambda: out.cpu().numpy()),
+        "whole": _median_ns(lambda: tb.bloom_probe_tier(tuples, qn, tn),
+                            reps=200),
+        "removed": {
+            "single_table_call": _median_ns(
+                lambda: tb.bloom_probe(tuples[0], qn[first]), reps=200),
+            "single_table_queries": int(first.sum())}}
+    return {"bloom_build": k2, "bloom_probe_tier": k5}
+
+
 # --------------------------- service phases ----------------------------------
 PRIMITIVES = ("ingest_run", "merge_runs", "bloom_build", "bloom_probe",
-              "lookup_batch", "prepare_tier", "lookup_fused", "prepare_store",
-              "lookup_store_fused")
+              "bloom_probe_tier", "lookup_batch", "prepare_tier",
+              "lookup_fused", "prepare_store", "lookup_store_fused")
 # The device pool's residency checks: each walks the page ids of a tier
 # (``acquire``) or of every tier of a tree (``acquire_store``) through the
 # clock when no prepared view is cached, and includes the prepare_* call
@@ -1305,6 +1493,8 @@ def main() -> int:
     timing = time_kernels(checked["timed"])
     emit({"phase": "kernels", "card": card, "max_abs_err": checked["err"],
           "view_bytes": checked["view_bytes"], "timing": timing})
+    emit({"phase": "host_split", "card": card, "ns": host_split(
+        checked["timed"])})
     # K6 at the serving path's shapes and two long prefills, bf16 and f32.
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1329,6 +1519,8 @@ def main() -> int:
     torch.cuda.synchronize()
     staged["launches"] = dict(LAUNCHES)
     staged["wall_s"] = time.perf_counter() - t0
+    staged["k5_launches_per_submit"] = (staged["launches"]["bloom_probe"]
+                                        / service_kw["n_mixed"])
     emit({"phase": "service", "card": card, **staged})
     missing = [k for k in ("merge_pair", "bloom_build", "bloom_probe")
                if staged["launches"][k] <= 0]

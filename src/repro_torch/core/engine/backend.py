@@ -6,6 +6,8 @@ A backend supplies the engine's data-parallel primitives:
   * ``ingest_run(keys, vals)`` -- sort+dedup of one write batch (ingest)
   * ``bloom_build(keys)``    -- per-SSTable Bloom filter construction
   * ``bloom_probe(f, keys)`` -- batched membership probes
+  * ``bloom_probe_tier(fs, keys, tidx)`` -- the same, each key against
+    its own table's filter ``fs[tidx[i]]``, for every table of a tier
   * ``lookup_batch(sorted_keys, queries)`` -- batched binary search in a run
   * ``prepare_tier(tables, bloom_fn)`` / ``lookup_fused(view, queries)``
     and ``prepare_store(tiers, bloom_fn)`` / ``lookup_store_fused(view,
@@ -187,7 +189,16 @@ class ExecutionBackend:
 
     def bloom_probe(self, filt, keys):
         """Probe ``filt`` for ``keys``; returns a bool membership mask
-        (no false negatives)."""
+        (no false negatives). The staged read path probes a tier at a
+        time (``bloom_probe_tier``); this one-filter form stays because
+        the interface mirrors the reference package's method for method,
+        whose staged path calls it per table."""
+        raise NotImplementedError
+
+    def bloom_probe_tier(self, filts, keys, tidx):
+        """Probe each ``keys[i]`` against ``filts[tidx[i]]`` in one call;
+        returns a bool membership mask, bit-identical to one
+        ``bloom_probe`` call per filter."""
         raise NotImplementedError
 
     def lookup_batch(self, sorted_keys, queries):

@@ -2,7 +2,8 @@
 hand-written CUDA kernels in ``repro_torch.kernels``.
 
   * ``merge_runs`` and ``ingest_run`` -> K1 ``merge_pair``;
-  * ``bloom_build`` -> K2, ``bloom_probe`` -> K5;
+  * ``bloom_build`` -> K2, ``bloom_probe`` and ``bloom_probe_tier`` (the
+    staged read path's Bloom gate of a whole tier) -> K5;
   * ``lookup_batch`` -> ``torch.searchsorted`` on the device;
   * ``lookup_fused`` -> K4 ``probe_tier``, ``lookup_store_fused`` -> K3
     ``probe_store``, over the device-resident views that ``prepare_tier``
@@ -95,13 +96,32 @@ class TorchBackend(ExecutionBackend):
         filt = bloom_k.bloom_build(self._to(keys), n_slots, self.k_hashes)
         return ("torch", filt)
 
-    def bloom_probe(self, filt, keys):
+    @staticmethod
+    def _filter(filt) -> torch.Tensor:
         kind, f = filt
         if kind != "torch":
             raise TypeError(f"filter built by backend {kind!r}, not 'torch'")
+        return f
+
+    def bloom_probe(self, filt, keys):
+        f = self._filter(filt)
         if len(keys) == 0:
             return np.zeros(0, bool)
         hit = bloom_k.bloom_probe(f, self._to(keys), self.k_hashes)
+        return hit.cpu().numpy()
+
+    def bloom_probe_tier(self, filts, keys, tidx):
+        """K5's tier form: one launch for every table a batch reaches in a
+        tier. The wrapper sends queries, table indices and the filters'
+        addresses and slot counts to the card in one copy; the mask comes
+        back in one."""
+        if len(keys) == 0:
+            return np.zeros(0, bool)
+        hit = bloom_k.bloom_probe_tier(
+            [self._filter(f) for f in filts],
+            torch.from_numpy(np.ascontiguousarray(keys, np.int64)),
+            torch.from_numpy(np.ascontiguousarray(tidx, np.int64)),
+            self.k_hashes)
         return hit.cpu().numpy()
 
     # -- point lookups -------------------------------------------------------
@@ -126,13 +146,7 @@ class TorchBackend(ExecutionBackend):
         filters), and per table its slot offset, slot count, run offset
         and run length ``lens`` (``kernels.lookup.VIEW_FIELDS``). One
         host-to-device copy per array, the per-table ones in one."""
-        filts = []
-        for t in tables:
-            kind, f = bloom_fn(t)
-            if kind != "torch":
-                raise TypeError(f"filter built by backend {kind!r}, not "
-                                f"'torch'")
-            filts.append(f.reshape(-1))
+        filts = [self._filter(bloom_fn(t)).reshape(-1) for t in tables]
         nslots = np.array([f.numel() for f in filts], np.int64)
         meta = self._to(np.stack([np.cumsum(nslots) - nslots, nslots,
                                   np.cumsum(lens) - lens, lens]))

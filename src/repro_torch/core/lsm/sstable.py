@@ -74,7 +74,7 @@ def assign_ranges(tables, los, his):
 
 
 def probe_tier(tables, keys, found, vals, unresolved, lookup_batch, *,
-               pre_probe=None, post_lookup=None):
+               bloom_gate=None, post_lookup=None):
     """Probe one disjoint, sorted tier with every still-unresolved key,
     scattering hits into ``found``/``vals``/``unresolved`` in place.
 
@@ -83,8 +83,12 @@ def probe_tier(tables, keys, found, vals, unresolved, lookup_batch, *,
     scatter) shared by the tree's disk tiers and the partitioned memory
     component's levels. Hooks carry the disk-only concerns:
 
-      pre_probe(sst, qk) -> bool mask of probes worth a binary search
-        (the tree pins Bloom pages and probes the filter here);
+      bloom_gate(tables, visit, q, ti, ok) -> gate, called once per tier
+        with the tables the loop will visit (``visit``, ascending), the
+        probed keys and their assignment (the tree probes every visited
+        table's filter here in one backend call); then, per visited
+        table, gate(sst, sel) -> bool mask over ``q[sel]`` of probes worth
+        a binary search (the tree pins Bloom pages here);
       post_lookup(sst, pos, hit) (the tree pins leaf pages here).
     """
     idx_un = np.flatnonzero(unresolved)
@@ -92,11 +96,16 @@ def probe_tier(tables, keys, found, vals, unresolved, lookup_batch, *,
         return
     q = keys[idx_un]
     ti, ok = assign_queries(tables, q)
-    for t_i in np.unique(ti[ok]):
+    visit = np.unique(ti[ok])
+    if not len(visit):
+        return
+    gate = None if bloom_gate is None else bloom_gate(tables, visit, q, ti,
+                                                      ok)
+    for t_i in visit:
         sst = tables[t_i]
         sel = np.flatnonzero(ok & (ti == t_i))
-        if pre_probe is not None:
-            positive = pre_probe(sst, q[sel])
+        if gate is not None:
+            positive = gate(sst, sel)
             if not positive.any():
                 continue
             sel = sel[positive]

@@ -4,7 +4,7 @@ All disk I/O is accounted through the shared ``Disk`` (page pins via the
 buffer cache, flush/merge writes). Point lookups are batched end-to-end:
 ``lookup_batch`` probes the memory component, L0 groups, and disk levels
 with vectorized range assignment and issues one Bloom-probe kernel call
-per (SSTable, batch) through the configured execution backend; compaction
+per (tier, batch) through the configured execution backend; compaction
 merges dispatch through the same backend (``core.engine``). Per-tree
 statistics feed the flush policies (§4.2) and the memory tuner (§5).
 """
@@ -332,11 +332,22 @@ class LSMTree:
             self._bloom_cache[sst.sst_id] = ent
         return ent[1]
 
-    def _bloom_gate(self, sst, qk):
-        """pre_probe hook: pin Bloom pages (one pin per probed key, as in
-        the scalar path) and issue the Bloom probe as one backend call."""
-        self.disk.query_pin_many(sst.sst_id, [-1] * len(qk))
-        return self.backend.bloom_probe(self._bloom(sst), qk)
+    def _bloom_gate(self, tables, visit, q, ti, ok):
+        """bloom_gate hook of ``probe_tier``: the Bloom probe of every
+        table the tier's loop visits, as one backend call (each covered
+        key against its own table's filter). The per-table gate it returns
+        pins the table's Bloom pages (one pin per probed key, as in the
+        scalar path) and hands back the table's part of the mask."""
+        sel = np.flatnonzero(ok)
+        mask = np.zeros(len(q), bool)
+        mask[sel] = self.backend.bloom_probe_tier(
+            [self._bloom(tables[t]) for t in visit], q[sel],
+            np.searchsorted(visit, ti[sel]))
+
+        def gate(sst, rows):
+            self.disk.query_pin_many(sst.sst_id, [-1] * len(rows))
+            return mask[rows]
+        return gate
 
     def _leaf_pins(self, sst, pos, hit):
         """post_lookup hook: touch the leaf page of every Bloom positive."""
@@ -500,8 +511,8 @@ class LSMTree:
         newest-group-first, then disk levels top-down; a key stops probing
         once resolved. With the device pool on, the whole store is probed
         in one launch, or each resident tier in one; otherwise (and for a
-        cold tier) the staged path runs one Bloom probe and one sorted
-        probe per (SSTable, batch)."""
+        cold tier) the staged path runs one Bloom probe per (tier, batch)
+        and one sorted probe per (SSTable, batch)."""
         keys = np.asarray(keys, np.int64)
         self.stats.lookups += len(keys)
         found, vals = self.mem.lookup_batch(keys)
@@ -525,7 +536,7 @@ class LSMTree:
                 continue
             probe_tier(tier, keys, found, vals, unresolved,
                        self.backend.lookup_batch,
-                       pre_probe=self._bloom_gate,
+                       bloom_gate=self._bloom_gate,
                        post_lookup=self._leaf_pins)
         # A tombstone *resolves* its key (it shadows older versions, so
         # probing stopped at it) but reads back as absent.

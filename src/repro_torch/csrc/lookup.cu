@@ -63,7 +63,7 @@ __device__ __forceinline__ bool probe_one(const View& v, int64_t t,
                                           int64_t* positive, int64_t* pos,
                                           int64_t* hit, int64_t* val) {
   *positive = repro_bloom::member(v.fbits + v.f_offs[t],
-                                  static_cast<int32_t>(v.nslots[t]),
+                                  static_cast<uint32_t>(v.nslots[t]),
                                   k_hashes, key);
   const int64_t off = v.offs[t];
   const int64_t end = off + v.lens[t];

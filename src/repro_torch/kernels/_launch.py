@@ -35,4 +35,6 @@ def expect(t: torch.Tensor, name: str, dtype: torch.dtype,
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream of ``t``'s CUDA device, read
+    without building a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

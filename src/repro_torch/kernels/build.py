@@ -31,6 +31,7 @@ SIGNATURES = {
     "merge_pair": [_P, _P, _I64, _P, _P, _I64, _P, _P, _P, _P],
     "bloom_build": [_P, _I64, _I32, _INT, _P, _P],
     "bloom_probe": [_P, _I32, _INT, _P, _I64, _P, _P],
+    "bloom_probe_tier": [_P, _I64, _INT, _P, _P, _I64, _P, _P],
     "probe_tier": [_P] * 7 + [_INT, _P, _P, _I64, _P, _P],
     "probe_store": [_P] * 8 + [_I64, _INT, _P, _P, _I64, _P, _P],
     "flash_attention": [_P] * 4 + [_I64] * 18 + [_INT, _INT, _F32, _F32,

@@ -152,6 +152,61 @@ def test_bloom_slot_of_key_one():
                                   ref_bloom_slots(np.array([1]), 1280, 7))
 
 
+def _tier(rng, sizes, hi=INT32_MAX - 1):
+    """Disjoint sorted tables of ``sizes`` keys (several slot counts) and
+    queries: half present, half random, each with its covering table
+    (clipped into the tier, as the engine assigns them)."""
+    keys = np.sort(rng.choice(hi, sum(sizes), replace=False)).astype(np.int64)
+    cuts = np.cumsum([0, *sizes])
+    tables = [keys[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    q = np.concatenate([rng.choice(keys, 150),
+                        rng.integers(0, hi, 150)]).astype(np.int64)
+    starts = np.array([t[0] for t in tables])
+    tidx = np.clip(np.searchsorted(starts, q, side="right") - 1, 0,
+                   len(tables) - 1).astype(np.int64)
+    return tables, q, tidx
+
+
+@pytest.mark.parametrize("sizes", [[2048], [100, 300, 2048, 5000],
+                                   [17, 700, 1000, 1, 260, 3000, 40]])
+def test_bloom_probe_tier_matches_pallas_and_numpy(tb, nb, sizes):
+    rng = np.random.default_rng(sum(sizes))
+    tables, q, tidx = _tier(rng, sizes)
+    filts = [tb.bloom_build(k) for k in tables]
+    got = tb.bloom_probe_tier(filts, q, tidx)
+    assert got.dtype == bool and got.shape == q.shape
+    fs = [f for _, f in filts]
+    np.testing.assert_array_equal(
+        bloom_k.bloom_probe_tier(fs, torch.from_numpy(q),
+                                 torch.from_numpy(tidx), 7).numpy(), got)
+    for t, keys in enumerate(tables):
+        rows = tidx == t
+        if not rows.any():
+            continue
+        np.testing.assert_array_equal(
+            got[rows], nb.bloom_probe(nb.bloom_build(keys), q[rows]))
+        np.testing.assert_array_equal(
+            got[rows], bloom_ops.bloom_probe_run(fs[t].numpy(), q[rows],
+                                                 interpret=True))
+    assert got[:150].all()                              # no false negatives
+    assert len({f.numel() for f in fs}) == len({bloom_sizing(len(k))[1]
+                                                for k in tables})
+
+
+def test_bloom_probe_tier_wide_keys_match_numpy(tb, nb):
+    rng = np.random.default_rng(17)
+    keys = np.unique(np.concatenate([WIDE, rng.integers(-2**62, 2**62,
+                                                        600)]))
+    tables = [keys[:5], keys[5:300], keys[300:]]
+    q = np.concatenate([keys, keys + 3, [5, 2**33 + 7]]).astype(np.int64)
+    tidx = rng.integers(0, 3, len(q)).astype(np.int64)
+    got = tb.bloom_probe_tier([tb.bloom_build(k) for k in tables], q, tidx)
+    want = np.zeros(len(q), bool)
+    for t, k in enumerate(tables):
+        want[tidx == t] = nb.bloom_probe(nb.bloom_build(k), q[tidx == t])
+    np.testing.assert_array_equal(got, want)
+    own = np.array([np.isin(k, tables[t]) for k, t in zip(q, tidx)])
+    assert own.sum() > 100 and got[own].all()          # no false negatives
 # --------------------------- keys beyond int32 -------------------------------
 WIDE = np.array([0, 1, -1, -7, 2**31 - 1, 2**31, 2**31 + 5, 2**32,
                  2**32 + 1, -(2**31), TOMBSTONE, 2**40 + 3, -(2**45),
@@ -219,6 +274,42 @@ def test_property_backend_matches_numpy(runs, batch):
         nb.bloom_probe(nb.bloom_build(uk), keys + 1))
 
 
+@settings(database=None, max_examples=40, deadline=None)
+@given(st.lists(st.lists(st.integers(-2**63, 2**63 - 1), min_size=1,
+                         max_size=60), min_size=1, max_size=6),
+       st.lists(st.tuples(st.integers(-2**40, 2**40), st.integers(0, 5)),
+                max_size=80))
+def test_property_bloom_probe_tier_matches_numpy(tables, probes):
+    tb, nb = TorchBackend(device="cpu"), RefNumpy()
+    tables = [np.unique(np.array(t, np.int64)) for t in tables]
+    q = np.array([k for k, _ in probes], np.int64)
+    tidx = np.array([t % len(tables) for _, t in probes], np.int64)
+    got = tb.bloom_probe_tier([tb.bloom_build(k) for k in tables], q, tidx)
+    assert got.shape == q.shape
+    for t, k in enumerate(tables):
+        np.testing.assert_array_equal(
+            got[tidx == t], nb.bloom_probe(nb.bloom_build(k), q[tidx == t]))
+
+
+@pytest.mark.parametrize("n_slots", [128, 1280, 20480, 2**31 - 128])
+def test_mod_free_slot_walk_equals_reference(n_slots):
+    # The kernels' slot walk (bloom_hash.cuh): h1, h2 from the reference's
+    # floor-mod, then each slot is the last plus h2, less n_slots where
+    # the uint32 sum reaches it. It must give (h1 + j * h2) mod n_slots.
+    keys = np.concatenate([WIDE, np.random.default_rng(n_slots).integers(
+        -2**63, 2**63 - 1, 5000)])
+    want = ref_bloom_slots(keys, n_slots, 7)
+    s = want[:, 0].astype(np.uint32)
+    h2 = ((keys.astype(np.int32) * np.int32(0x85EBCA77 - 2**32))
+          | np.int32(1)) % np.int32(n_slots)
+    h2 = h2.astype(np.uint32)
+    n = np.uint32(n_slots)
+    for j in range(7):
+        np.testing.assert_array_equal(s, want[:, j])
+        s = s + h2                                  # < 2**32: no wrap
+        s = np.where(s >= n, s - n, s).astype(np.uint32)
+
+
 # --------------------------- wrapper contract --------------------------------
 def test_wrappers_take_the_plain_version_only_on_cpu(tb):
     before = dict(LAUNCHES)
@@ -238,3 +329,34 @@ def test_wrappers_take_the_plain_version_only_on_cpu(tb):
     with pytest.raises(ValueError, match="multiple of 128"):
         bloom_k.bloom_build(k, 1000, 7)
 
+
+def test_tier_wrapper_contract():
+    before = dict(LAUNCHES)
+    k = torch.arange(5, dtype=torch.int64)
+    fs = [bloom_k.bloom_build(k, 1280, 7), bloom_k.bloom_build(k + 9, 256, 7)]
+    t = torch.tensor([0, 1, 1, 0, 1])
+    got = bloom_k.bloom_probe_tier(fs, k, t, 7)
+    assert got.tolist() == [True, False, False, True, False]
+    assert LAUNCHES == before                  # the plain versions ran
+    assert bloom_k.tier_table(fs) == [fs[0].data_ptr(), fs[1].data_ptr(),
+                                      1280, 256]
+    with pytest.raises(ValueError, match="tidx 4"):
+        bloom_k.bloom_probe_tier(fs, k, t[:4], 7)
+    with pytest.raises(ValueError, match="no filters"):
+        bloom_k.bloom_probe_tier([], k, t, 7)
+    with pytest.raises(ValueError, match=r"filts\[1\]"):
+        bloom_k.bloom_probe_tier([fs[0], fs[1].reshape(-1)], k, t, 7)
+    with pytest.raises(ValueError, match=r"filts\[1\] lies on meta"):
+        bloom_k.bloom_probe_tier([fs[0], fs[1].to("meta")], k, t, 7)
+    assert bloom_k.bloom_probe_tier([], k[:0], t[:0], 7).shape == (0,)
+    m = torch.empty(5, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        bloom_k.bloom_probe_tier([fs[0].to("meta")], m, m, 7)
+    # Host keys go with filters on a device; CPU filters take no keys
+    # from a device.
+    with pytest.raises(ValueError, match="no kernel for device"):
+        bloom_k.bloom_probe_tier([fs[0].to("meta")], k, t, 7)
+    with pytest.raises(ValueError, match="several devices"):
+        bloom_k.bloom_probe_tier(fs, m, m, 7)
+    with pytest.raises(ValueError, match="several devices"):
+        bloom_k.bloom_probe_tier([fs[0].to("meta")], k, m, 7)

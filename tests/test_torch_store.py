@@ -138,6 +138,112 @@ def test_paced_service_bit_identical_to_reference():
     assert p_svc.pacer.slices == r_svc.pacer.slices > 0
 
 
+# --------------------------- staged Bloom gate: one call per tier -----------
+def test_staged_reads_probe_each_tier_once_per_batch(monkeypatch):
+    # The staged path (pool off) gates a tier's tables in one backend call
+    # per (tier, Get batch): one call wherever the reference's per-table
+    # loop probes at least one table, the same tables as its per-table
+    # calls, and everything else bit-identical.
+    from repro.core.engine import NumpyBackend as RefNumpy
+    from repro_torch.core.engine.torch_backend import TorchBackend
+    from repro_torch.core.lsm import sstable as port_sstable
+    from repro_torch.core.lsm import tree as port_tree
+    seen = {"pairs": 0, "tier_calls": 0, "tables": 0, "single": 0,
+            "ref_tables": 0}
+
+    def pairs(tables, keys, found, vals, unresolved, lookup_batch, **kw):
+        if kw.get("bloom_gate") is not None and tables:
+            _, ok = port_sstable.assign_queries(tables,
+                                                 keys[unresolved])
+            seen["pairs"] += bool(ok.any())
+        return port_sstable.probe_tier(tables, keys, found, vals,
+                                       unresolved, lookup_batch, **kw)
+
+    def counting(cls, name, key, per_call):
+        fn = getattr(cls, name)
+
+        def wrapped(self, *a):
+            seen[key] += per_call(*a)
+            return fn(self, *a)
+        monkeypatch.setattr(cls, name, wrapped)
+
+    monkeypatch.setattr(port_tree, "probe_tier", pairs)
+    counting(TorchBackend, "bloom_probe_tier", "tier_calls", lambda *a: 1)
+    counting(TorchBackend, "bloom_probe_tier", "tables",
+             lambda fs, *a: len(fs))
+    counting(TorchBackend, "bloom_probe", "single", lambda *a: 1)
+    counting(RefNumpy, "bloom_probe", "ref_tables", lambda *a: 1)
+    steps = gen_stream(23, 60)
+    kw = small_kw("partitioned", "opt")
+    r_svc, r_out = run(ref, ref_reset, ref.StoreConfig(backend="numpy", **kw),
+                       steps)
+    p_svc, p_out = run(port, port_reset, port.StoreConfig(device="cpu", **kw),
+                       steps)
+    assert p_out == r_out
+    assert fingerprint(p_svc.store) == fingerprint(r_svc.store)
+    assert vars(p_svc.store.disk.stats) == vars(r_svc.store.disk.stats)
+    assert (p_svc.store.disk.cache.hits, p_svc.store.disk.cache.misses) \
+        == (r_svc.store.disk.cache.hits, r_svc.store.disk.cache.misses)
+    assert ([port_encode(r) for r in p_svc.store.wal.records()]
+            == [ref_encode(r) for r in r_svc.store.wal.records()])
+    assert seen["tier_calls"] == seen["pairs"] > 0
+    assert seen["tables"] == seen["ref_tables"] > seen["tier_calls"]
+    assert seen["single"] == 0
+
+
+def test_tier_probe_mixes_negative_and_positive_tables(monkeypatch):
+    # One Get batch whose tier probe is all-negative for some tables (keys
+    # never written, Bloom-negative there) and positive for others: the
+    # port skips the same tables' binary searches as the reference's
+    # per-table loop, with the same results, page pins and IOStats.
+    from repro.core.engine import NumpyBackend as RefNumpy
+    from repro_torch.core.engine.torch_backend import TorchBackend
+    calls = []
+    fn = TorchBackend.bloom_probe_tier
+
+    def recording(self, filts, keys, tidx):
+        out = fn(self, filts, keys, tidx)
+        calls.append((np.asarray(tidx).copy(), out.copy()))
+        return out
+    monkeypatch.setattr(TorchBackend, "bloom_probe_tier", recording)
+    kw = small_kw("partitioned", "opt")
+    stores = []
+    for pkg, reset, cfg in (
+            (ref, ref_reset, ref.StoreConfig(backend="numpy", **kw)),
+            (port, port_reset, port.StoreConfig(device="cpu", **kw))):
+        reset()
+        st = pkg.LSMStore(cfg)
+        st.create_tree("t")
+        rng = np.random.default_rng(3)
+        for _ in range(60):
+            ks = rng.integers(0, 20_000, 256) * 2       # even keys only
+            st.write_batch("t", ks, ks * 3)
+        st.scheduler.flush_tree(st.trees["t"], trigger="mem")
+        stores.append(st)
+    r_st, p_st = stores
+    tier = max(p_st.trees["t"].levels.lookup_tiers(), key=len)
+    assert len(tier) >= 3
+    nb = RefNumpy()
+    odd = np.arange(tier[0].min_key + 1, tier[0].max_key, 2)
+    neg = odd[~nb.bloom_probe(nb.bloom_build(tier[0].keys), odd)][:40]
+    q = np.concatenate([neg, tier[1].keys[::3], tier[2].keys[::5]])
+    calls.clear()
+    got = p_st.read_batch("t", q)
+    want = r_st.read_batch("t", q)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert got[0][len(neg):].any() and not got[0][:len(neg)].any()
+    assert vars(p_st.disk.stats) == vars(r_st.disk.stats)
+    assert (p_st.disk.cache.hits, p_st.disk.cache.misses) \
+        == (r_st.disk.cache.hits, r_st.disk.cache.misses)
+    assert fingerprint(p_st) == fingerprint(r_st)
+    mixed = [(t, m) for t, m in calls
+             if any(not m[t == i].any() for i in np.unique(t))
+             and any(m[t == i].any() for i in np.unique(t))]
+    assert mixed, "no tier probe was negative for one table and positive " \
+                  "for another"
+
+
 # --------------------------- device rules ------------------------------------
 @pytest.mark.parametrize("knob,value,slice_name", [
     ("storage_medium", "files", "files-medium slice"),
