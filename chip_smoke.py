@@ -8,13 +8,21 @@
 2. Kernel phase: holds each kernel (K1 merge_pair, K2 bloom_build, K5
    bloom_probe, K4 probe_tier, K3 probe_store) against its plain PyTorch
    version on the card, with exact integer equality, at the main path's
-   shapes (K2 at 256, 2048, 16384 and 2**20 keys, on both sides of its
-   two paths; K5 on one filter and, in its tier form, on a tier of 512 tables
-   of 2048 keys, a one-table tier and a tier of five slot counts; K4 on a
-   tier of 512 tables of 2048 keys, K3 on a store of six tiers and 512
-   tables; 4096 queries, half present), and times kernel, plain version
-   and a library yardstick with CUDA events; then the host nanoseconds
-   of each part of a K2 call and of the staged path's K5 call
+   shapes (K1 in its pair form and its k-run form ``merge_runs`` at the
+   timed pairs, at tile edges, with empty and one-element runs, 2**16 +
+   2**16 equal keys, k = 3, 6 and 12 runs of about 100, on both of the
+   k-run form's other routes, and on an 11-run level merge and the ingest
+   of 2048 and 4096 keys through the engine's call, see
+   ``check_merge_runs``; K2 at 256, 2048, 16384 and 2**20 keys, on both
+   sides of its two paths; K5 on one filter and, in its tier form, on a
+   tier of 512 tables of 2048 keys, a one-table tier and a tier of five
+   slot counts; K4 on a tier of 512 tables of 2048 keys, K3 on a store of
+   six tiers and 512 tables; 4096 queries, half present), and times
+   kernel, plain version and a library yardstick with CUDA events (K1
+   through its one C entry, ``merge_runs``, on the timed pair packed as
+   two runs and at a scan's shape); then the host nanoseconds
+   of each part of a K2 call, of the staged path's K5 call and of K1's
+   engine call at a scan's shape and at a 2048-key ingest
    (``host_split``). Then K6
    (flash_attention) against its plain version in bf16 (2e-2) and f32
    (1e-5) at the serving path's prefill and decode shapes (Yi-6B heads),
@@ -34,7 +42,8 @@
    and K1, K2 and K5 must have launched in this phase (the wrappers'
    launch counts are zeroed just before it); K5 runs in its tier form,
    one launch per (tier, Get batch), and its launches per submit are
-   printed.
+   printed. K1 must have launched at most once per ``merge_runs`` or
+   ``ingest_run`` call (``"k1"``: calls, launches, the calls by route).
 4. Pool service phase: the same stream with a 2 GiB device page pool and
    store-scope fused reads, then a read-only tail of 32 submits of 4096
    zipfian Gets (YCSB C). Every Get, Scan, IOStats counter (but the
@@ -94,6 +103,8 @@ from repro_torch.core import (Delete, Get, Put, Scan,  # noqa: E402
 from repro_torch.core.durability.wal import encode_record  # noqa: E402
 from repro_torch.core.engine.backend import (  # noqa: E402
     assign_bounds, bloom_sizing)
+from repro_torch.core.engine.numpy_backend import (  # noqa: E402
+    merge_runs_numpy)
 from repro_torch.core.engine.torch_backend import TorchBackend  # noqa: E402
 from repro_torch.core.lsm.sstable import (  # noqa: E402
     TOMBSTONE, partition_run, reset_sst_ids, sstable_from_run)
@@ -148,6 +159,13 @@ SOURCES = {
 BLOOM_BUILD_KEYS = (256, 2048, 16384, 1 << 20)
 # K5's tier form on a tier of tables of these sizes (several slot counts).
 MIXED_TABLE_KEYS = (100, 300, 1000, 2048, 5000, 17, 700)
+# K1's k-run form at a scan's shape (about 100 entries a run over the
+# memory component and the tiers, 3.9 runs a call in the staged phase):
+# the timed shape and the host split's.
+SCAN_RUNS = (100, 100, 100, 100)
+# K1 is held exactly at output sizes on both sides of one merge-path tile
+# and of eight.
+K1_TILE_EDGES = tuple(m * merge_k.TILE + d for m in (1, 8) for d in (-1, 0, 1))
 # The pool service phase: a device page pool of 2 GiB of logical 16 KB
 # pages (131,072), room for every disk table of the 2**20-key store.
 POOL_BYTES = 2 << 30
@@ -155,6 +173,14 @@ POOL_BYTES = 2 << 30
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def zero_counts() -> None:
+    """Zero the kernels' launch counts and K1's route counts."""
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    for r in merge_k.ROUTES:
+        merge_k.ROUTES[r] = 0
 
 
 # --------------------------- timing ------------------------------------------
@@ -203,13 +229,23 @@ def device_us(fn) -> tuple[dict, float]:
 
 
 def kernel_device_ms(fn, kernel: str, reps: int = 20):
-    """Device time of one launch of ``kernel`` (profiler), or None when
-    the profiler reports no device time for it."""
+    """Device time of one launch of ``kernel`` over ``reps`` calls of
+    ``fn`` (profiler): the kernel's device time over the launches the
+    profiler recorded, which can be fewer than the calls. None when it
+    reports no device time for the kernel."""
+    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    by_name, _ = device_us(lambda: [fn() for _ in range(reps)])
-    us = sum(v for k, v in by_name.items() if kernel in k)
-    return us / reps / 1e3 if us > 0 else None
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, launches = 0.0, 0
+    for e in prof.key_averages():
+        if kernel in e.key and getattr(e, "self_device_time_total", 0) > 0:
+            us += e.self_device_time_total
+            launches += e.count
+    return us / launches / 1e3 if launches else None
 
 
 # --------------------------- kernel phase ------------------------------------
@@ -309,6 +345,168 @@ def _view_bytes(view) -> int:
     return sum(t.nbytes for t in view.payload.values())
 
 
+# --------------------------- K1: the k-run form ------------------------------
+def _sorted_run(rng, n: int, pool) -> np.ndarray:
+    """``n`` sorted int64 keys in +-2**40 (beyond int32, negative ones
+    too), a quarter drawn from ``pool`` (keys of newer runs), and every
+    ninth key a copy of the one before it (in-run duplicates)."""
+    k = rng.integers(-2**40, 2**40, n)
+    if len(pool) and n >= 4:
+        k[: n // 4] = rng.choice(pool, n // 4)
+    k[1::9] = k[0::9][: len(k[1::9])]
+    return np.sort(k)
+
+
+def _k_runs(rng, lens):
+    """Newest-first runs of ``lens`` keys (``_sorted_run``) with values."""
+    runs, pool = [], np.zeros(0, np.int64)
+    for n in lens:
+        k = _sorted_run(rng, n, pool)
+        runs.append((k, rng.integers(-2**62, 2**62, n)))
+        pool = np.concatenate([pool, k])
+    return runs
+
+
+def _level_runs(rng, n_keys: int, n_olds: int):
+    """A level merge: a victim table, then ``n_olds`` tables of the next
+    level, adjacent and disjoint (each with in-run duplicates), about
+    ``n_keys`` keys in all; half the victim's keys overwrite old ones."""
+    n_v = n_keys // (n_olds + 1)
+    old = np.unique(rng.integers(-2**40, 2**40, n_keys - n_v))
+    olds = []
+    for c in np.array_split(old, n_olds):
+        c = np.sort(np.concatenate([c, c[1:len(c) // 50 + 1]]))
+        olds.append((c, rng.integers(-2**62, 2**62, len(c))))
+    victim = _sorted_run(rng, n_v, old)
+    return [(victim, rng.integers(-2**62, 2**62, n_v))] + olds
+
+
+def _packed(runs, dev):
+    """``runs`` packed for ``merge_runs`` as they are (no joining), on
+    ``dev``: (packed, k, n)."""
+    offs = np.cumsum([0] + [len(k) for k, _ in runs]).astype(np.int64)
+    buf = np.empty(len(offs) + 2 * int(offs[-1]), np.int64)
+    merge_k.pack_runs(runs, offs, buf)
+    return torch.from_numpy(buf).to(dev), len(runs), int(offs[-1])
+
+
+def _hold_k_run(runs, dev, what: str):
+    """K1's k-run form against ``merge_runs_plain`` on the runs as they
+    are; raises on any difference. Returns the error and the route."""
+    p, k, n = _packed(runs, dev)
+    before = dict(merge_k.ROUTES)
+    got = merge_k.merge_runs(p, k, n)
+    route = [r for r in merge_k.ROUTE_NAMES
+             if merge_k.ROUTES[r] != before[r]]
+    e = _max_abs_err(merge_k.unpack(got, n),
+                     merge_k.unpack(merge_k.merge_runs_plain(p, k, n), n))
+    if e:
+        raise AssertionError(f"merge_runs differs from its plain version "
+                             f"({what}, k={k}, n={n}): {e}")
+    return e, (route[0] if route else None)
+
+
+def _hold_pair(a, av, b, bv, dev, what: str) -> int:
+    """K1's pair form (the pair packed for ``merge_runs``) against
+    ``merge_pair_plain``."""
+    T = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.int64)).to(dev)  # noqa: E731
+    args = tuple(map(T, (a, av, b, bv)))
+    e = _max_abs_err(merge_k.merge_pair(*args),
+                     merge_k.merge_pair_plain(*args))
+    if e:
+        raise AssertionError(f"merge_pair differs from its plain version "
+                             f"({what}, {len(a)}+{len(b)}): {e}")
+    return e
+
+
+def _ingest_oracle(keys, vals):
+    """Unique keys, the value and the batch position of each key's last
+    occurrence (the ingest semantics)."""
+    rev = keys[::-1]
+    u, first = np.unique(rev, return_index=True)
+    src = len(keys) - 1 - first
+    return u, vals[src], src
+
+
+def check_merge_runs(dev, *, merge_shapes, seed: int = 3) -> dict:
+    """Hold K1's new forms exactly against their plain versions on ``dev``:
+    the pair form (packed on the card) and the k-run form at the timed pair
+    shapes, at tile edges, with an empty run, one-element runs and 2**16 +
+    2**16 equal keys; the k-run form at k = 3, 6 and 12 (a scan's shape),
+    at sizes that take its global route, and on an 11-run level merge of
+    2**17 keys as it is (k = 11) and through the engine's call (the last 10
+    tables joined, k = 2), held to ``merge_runs_numpy``; and the engine's
+    ingest of batches of 2,048 and 4,096 keys, held to the card-free
+    oracle and to the CPU backend. Keys beyond int32, negative keys and
+    in-run duplicates throughout. Returns the largest error, each case's
+    route and the timed scan runs."""
+    rng = np.random.default_rng(seed)
+    err, cases = 0, {}
+
+    def hold(name, runs):
+        nonlocal err
+        e, route = _hold_k_run(runs, dev, name)
+        if len(runs) == 2:
+            (a, av), (b, bv) = runs
+            e = max(e, _hold_pair(a, av, b, bv, dev, name))
+        err = max(err, e)
+        cases[name] = {"runs": [len(k) for k, _ in runs], "route": route}
+
+    for na, nb in merge_shapes:
+        hold(f"pair_{na}+{nb}", _k_runs(rng, (na, nb)))
+    for m in K1_TILE_EDGES:
+        hold(f"tile_edge_{m}", _k_runs(rng, (m * 3 // 5, m - m * 3 // 5)))
+    hold("empty_newer", _k_runs(rng, (0, 3000)))
+    hold("empty_older", _k_runs(rng, (3000, 0)))
+    hold("empty_middle", _k_runs(rng, (100, 0, 100)))
+    hold("one_one", _k_runs(rng, (1, 1)))
+    hold("pair_small", _k_runs(rng, (130, 120)))
+    hold("one_newer", _k_runs(rng, (1, 20000)))
+    hold("one_older", _k_runs(rng, (20000, 1)))
+    hold("twelve_ones", _k_runs(rng, (1,) * 12))
+    eq = np.full(1 << 16, -(2**35) - 3, np.int64)
+    hold("equal_2^16+2^16", [(eq, rng.integers(-2**62, 2**62, 1 << 16)),
+                              (eq.copy(), rng.integers(-2**62, 2**62,
+                                                       1 << 16))])
+    for k in (3, 6, 12):
+        hold(f"scan_k{k}", _k_runs(rng, rng.integers(90, 111, k)))
+    hold("global_k3", _k_runs(rng, (1 << 15,) * 3))
+    hold("global_k5_uneven", _k_runs(rng, (40000, 17, 9000, 1, 70000)))
+    hold("single_run", _k_runs(rng, (50000,)))
+    level = _level_runs(rng, 1 << 17, 10)
+    hold("level_k11_as_is", level)
+    tb, cpu = TorchBackend(device=dev), TorchBackend(device="cpu")
+    before = dict(merge_k.ROUTES)
+    got = tb.merge_runs(level)
+    joined = {r: merge_k.ROUTES[r] - before[r] for r in merge_k.ROUTE_NAMES}
+    for g, w in zip(got, merge_runs_numpy(level)):
+        if not np.array_equal(g, w):
+            raise AssertionError("the engine's level merge differs from "
+                                 "merge_runs_numpy")
+    k_joined = len(merge_k.run_offsets(level)) - 1
+    if k_joined != 2:
+        raise AssertionError(f"the level merge's tables joined to "
+                             f"{k_joined} runs, not 2")
+    cases["level_k11_engine"] = {"runs": [len(k) for k, _ in level],
+                                 "runs_joined": k_joined, "routes": joined}
+    for n in (2048, 4096):
+        keys = np.concatenate([_key_of(rng.integers(0, n // 2, n - 2)),
+                               [-5, 2**33 + 1]])
+        rng.shuffle(keys)
+        vals = rng.integers(-2**62, 2**62, n)
+        before = dict(merge_k.ROUTES)
+        got = tb.ingest_run(keys, vals)
+        route = [r for r in merge_k.ROUTE_NAMES
+                 if merge_k.ROUTES[r] != before[r]]
+        for g, w, c in zip(got, _ingest_oracle(keys, vals),
+                           cpu.ingest_run(keys, vals)):
+            if not (np.array_equal(g, w) and np.array_equal(g, c)):
+                raise AssertionError(f"ingest_run of {n} keys differs")
+        cases[f"ingest_{n}"] = {"keys": n, "unique": len(got[0]),
+                                "route": route[0] if route else None}
+    return {"err": err, "cases": cases, "scan": _k_runs(rng, SCAN_RUNS)}
+
+
 def check_kernels(dev, *, merge_shapes, ingest_n: int, sst_keys: int,
                   n_queries: int, lookup_kw: dict, seed: int = 0) -> dict:
     """Hold every kernel against its plain version on ``dev`` at the main
@@ -326,6 +524,9 @@ def check_kernels(dev, *, merge_shapes, ingest_n: int, sst_keys: int,
         if e:
             raise AssertionError(f"merge_pair differs at {na}+{nb}: {e}")
         timed["merge_pair"] = args
+    k1 = check_merge_runs(dev, merge_shapes=merge_shapes, seed=seed + 3)
+    err["merge_pair"] = max(err["merge_pair"], k1["err"])
+    timed["merge_runs"] = k1["scan"]
     # Ingest shape: a batch with in-batch duplicates, in ingest order.
     keys = rng.integers(0, ingest_n // 2, ingest_n)
     order = np.lexsort((-np.arange(ingest_n), keys))
@@ -372,7 +573,8 @@ def check_kernels(dev, *, merge_shapes, ingest_n: int, sst_keys: int,
     lk = check_lookup(dev, n_queries=n_queries, seed=seed + 1, **lookup_kw)
     err.update(lk["err"])
     timed.update(lk["timed"])
-    return {"err": err, "timed": timed, "view_bytes": lk["view_bytes"]}
+    return {"err": err, "timed": timed, "view_bytes": lk["view_bytes"],
+            "k1_cases": k1["cases"]}
 
 
 def bloom_keys(rng, n: int) -> np.ndarray:
@@ -435,18 +637,39 @@ def time_kernels(timed: dict) -> dict:
     ak, av, bk, bv = timed["merge_pair"]
     n = len(ak) + len(bk)
     cat = torch.cat([ak, bk])
-    # Bytes: key and value read, key, value and flag written. Operations:
-    # the compares of each element's binary search in the other run.
+    # The engine's entry on the pair packed as the engine packs two runs.
+    # Bytes: the packed offsets, keys and values read, key, value and flag
+    # written. Operations: the compares of each element's binary search
+    # in the other run.
+    p2 = merge_k.pack_pair(ak, av, bk, bv)
     searches = (len(ak) * len(bk).bit_length()
                 + len(bk) * len(ak).bit_length())
     out["merge_pair"] = {
-        "ms": cuda_ms(lambda: merge_k.merge_pair(ak, av, bk, bv)),
-        "plain_ms": cuda_ms(lambda: merge_k.merge_pair_plain(ak, av, bk, bv)),
-        **bound(n * 16 + n * 17, searches + n),
+        "ms": cuda_ms(lambda: merge_k.merge_runs(p2, 2, n)),
+        "plain_ms": cuda_ms(lambda: merge_k.merge_runs_plain(p2, 2, n)),
+        **bound(p2.nbytes + n * 17, searches + n),
         "library_ms": cuda_ms(lambda: torch.sort(cat, stable=True)),
-        "device_ms": kernel_device_ms(
-            lambda: merge_k.merge_pair(ak, av, bk, bv), "merge_pair_kernel"),
+        "device_ms": kernel_device_ms(lambda: merge_k.merge_runs(p2, 2, n),
+                                      "merge_path_kernel"),
         "shape": [len(ak), len(bk)]}
+    # The engine's k-run call at a scan's shape, on the card's copy of the
+    # packed runs. Bytes: the packed offsets, keys and values read, keys,
+    # values and flags written. Operations: each element's binary search
+    # in every other run. Yardstick: a stable sort of the keys.
+    runs = timed["merge_runs"]
+    p, k, n = _packed(runs, ak.device)
+    keys = p[k + 1:k + 1 + n]
+    lens = [len(x) for x, _ in runs]
+    steps = sum(a * max(b, 1).bit_length() for i, a in enumerate(lens)
+                for j, b in enumerate(lens) if i != j)
+    out["merge_runs_scan"] = {
+        "ms": cuda_ms(lambda: merge_k.merge_runs(p, k, n)),
+        "plain_ms": cuda_ms(lambda: merge_k.merge_runs_plain(p, k, n)),
+        **bound(p.nbytes + n * 17, steps + n),
+        "library_ms": cuda_ms(lambda: torch.sort(keys, stable=True)),
+        "device_ms": kernel_device_ms(lambda: merge_k.merge_runs(p, k, n),
+                                      "merge_rank_kernel"),
+        "shape": lens}
     # K2 and K5: the filter (one byte a slot, 20 KB at 2048 keys) stays in
     # L2 after its first touch, so what must cross device memory is the
     # keys, the filter once and the probe results.
@@ -600,7 +823,81 @@ def host_split(timed: dict) -> dict:
             "single_table_call": _median_ns(
                 lambda: tb.bloom_probe(tuples[0], qn[first]), reps=200),
             "single_table_queries": int(first.sum())}}
-    return {"bloom_build": k2, "bloom_probe_tier": k5}
+    return {"bloom_build": k2, "bloom_probe_tier": k5,
+            "merge_runs_scan": k1_host_split(dev, timed["merge_runs"]),
+            "ingest_run_2048": k1_host_split(
+                dev, *_ingest_batch(np.random.default_rng(5), 2048))}
+
+
+def _ingest_batch(rng, n: int):
+    """The two halves of a write batch of ``n`` keys (about half of them
+    repeated) in ingest order, with batch positions as values, and the
+    batch itself (keys, values)."""
+    keys = _key_of(rng.integers(0, n // 2, n))
+    vals = rng.integers(-2**62, 2**62, n)
+    order = np.lexsort((-np.arange(n), keys))
+    ok = keys[order]
+    return [(ok[:n // 2], order[:n // 2]), (ok[n // 2:], order[n // 2:])], (
+        keys, vals)
+
+
+def k1_host_split(dev, runs, batch=None, reps: int = 200) -> dict:
+    """Host nanoseconds of each step of K1's engine call on ``runs``
+    (``merge_k.merge_runs_host``: joining, taking the staging buffer,
+    packing, the one copy in, the launch, the one copy back, which waits
+    for the copy in and the kernel, and the host compaction), medians of
+    the steps stamped in turn inside whole calls, beside the whole backend
+    call (``TorchBackend.merge_runs``, or ``ingest_run`` of ``batch``,
+    whose halves ``runs`` are). ``removed`` times the parts the call no
+    longer takes: one pairwise fold step (a launch, then the boolean-mask
+    indexing of keys and values, each a synchronising nonzero), that
+    indexing alone, a pageable copy in of one array and a copy back with
+    ``.cpu()``."""
+    tb = TorchBackend(device=dev)
+    steps = ("join", "take", "pack", "copy_in", "launch", "copy_back",
+             "compact")
+    ns = {s: [] for s in steps}
+    for _ in range(reps + 1):
+        t = [time.perf_counter_ns()]
+        offs = merge_k.run_offsets(runs)
+        k, n = len(offs) - 1, int(offs[-1])
+        m, w = k + 1 + 2 * n, merge_k.out_words(n)
+        t.append(time.perf_counter_ns())
+        buf, host = tb._staging.take(m + w)
+        t.append(time.perf_counter_ns())
+        merge_k.pack_runs(runs, offs, host[:m])
+        t.append(time.perf_counter_ns())
+        packed = buf[:m].to(dev, non_blocking=True)
+        t.append(time.perf_counter_ns())
+        out = merge_k.merge_runs(packed, k, n)
+        t.append(time.perf_counter_ns())
+        buf[m:m + w].copy_(out)
+        t.append(time.perf_counter_ns())
+        merge_k.compact(host[m:m + w], n)
+        t.append(time.perf_counter_ns())
+        for s, a, b in zip(steps, t, t[1:]):
+            ns[s].append(b - a)
+    T = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.int64)).to(dev)  # noqa: E731
+    (a, av), (b, bv) = runs[:2]
+    pair = merge_k.pack_pair(*map(T, (a, av, b, bv)))
+    n2 = len(a) + len(b)
+    mk, mv, keep = merge_k.unpack(merge_k.merge_runs(pair, 2, n2), n2)
+
+    def fold_step():
+        x, y, f = merge_k.unpack(merge_k.merge_runs(pair, 2, n2), n2)
+        return x[f], y[f]
+
+    whole = ((lambda: tb.ingest_run(*batch)) if batch is not None
+             else (lambda: tb.merge_runs(runs)))
+    return {
+        "runs": len(runs), "runs_joined": k, "keys": n,
+        **{s: float(np.median(v[1:])) for s, v in ns.items()},
+        "whole": _median_ns(whole, reps=reps),
+        "removed": {
+            "fold_step": _median_ns(fold_step),
+            "mask_indexing": _median_ns(lambda: (mk[keep], mv[keep])),
+            "pageable_copy_in": _median_ns(lambda: T(a)),
+            "copy_back_cpu": _median_ns(lambda: mk.cpu().numpy())}}
 
 
 # --------------------------- service phases ----------------------------------
@@ -852,10 +1149,24 @@ def _drive(svc, prim, rng, *, n_keys, batch, n_mixed, gets, puts, deletes,
                                   + tr[t].levels.lookup_tiers())
                            for t in trees},
            "write_stalls": st.write_stalls}
+    out["primitives_total"] = at_tail["primitives"]
     if n_tail:
         out["tail_wall_s"] = tail_s
         out["tail"] = {**tail.report(), **_part(at_mixed, at_tail)}
     return out
+
+
+def k1_per_call(phase: dict) -> dict:
+    """K1's launches over a service phase beside the calls of its two
+    engine primitives (load and every part), and the calls by route."""
+    calls = {p: phase["primitives_total"][p][0]
+             for p in ("merge_runs", "ingest_run")}
+    launches = phase["launches"]["merge_pair"]
+    total = sum(calls.values())
+    return {"calls": total, **{f"{p}_calls": c for p, c in calls.items()},
+            "launches": launches,
+            "k1_launches_per_call": launches / total if total else None,
+            "routes": dict(merge_k.ROUTES)}
 
 
 def same_as_staged(staged: dict, pooled: dict) -> None:
@@ -1276,8 +1587,7 @@ def run_serve(argv, *, profile_from: int = 0, n_profile: int = 0) -> dict:
     torch.cuda.reset_peak_memory_stats()
     probe = _ServeProbe(profile_from, n_profile)
     buf = io.StringIO()
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    zero_counts()
     t0 = time.perf_counter()
     with probe.attached(), contextlib.redirect_stdout(buf):
         stats = serve.main(argv)
@@ -1492,7 +1802,8 @@ def main() -> int:
     torch.cuda.synchronize()
     timing = time_kernels(checked["timed"])
     emit({"phase": "kernels", "card": card, "max_abs_err": checked["err"],
-          "view_bytes": checked["view_bytes"], "timing": timing})
+          "view_bytes": checked["view_bytes"], "k1_cases": checked["k1_cases"],
+          "timing": timing})
     emit({"phase": "host_split", "card": card, "ns": host_split(
         checked["timed"])})
     # K6 at the serving path's shapes and two long prefills, bf16 and f32.
@@ -1512,8 +1823,7 @@ def main() -> int:
                       puts=2048, deletes=64, scans=16, profile_submits=8)
     t0 = time.perf_counter()
     reset_sst_ids()
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    zero_counts()
     staged = run_service("cuda", cfg_kw={
         "max_log_bytes": SERVICE_MAX_LOG_BYTES}, **service_kw)
     torch.cuda.synchronize()
@@ -1521,19 +1831,22 @@ def main() -> int:
     staged["wall_s"] = time.perf_counter() - t0
     staged["k5_launches_per_submit"] = (staged["launches"]["bloom_probe"]
                                         / service_kw["n_mixed"])
+    staged["k1"] = k1_per_call(staged)
     emit({"phase": "service", "card": card, **staged})
     missing = [k for k in ("merge_pair", "bloom_build", "bloom_probe")
                if staged["launches"][k] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the staged path: "
                              f"{missing}")
+    if staged["k1"]["launches"] > staged["k1"]["calls"]:
+        raise AssertionError(f"K1 launched more than once per merge_runs or "
+                             f"ingest_run call: {staged['k1']}")
 
     # Pool service phase: the same stream with the device page pool on and
     # the store-scope fused reads, then a read-only tail (YCSB C).
     t0 = time.perf_counter()
     reset_sst_ids()
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    zero_counts()
     pooled = run_service("cuda", cfg_kw={
         "max_log_bytes": SERVICE_MAX_LOG_BYTES,
         "device_pool_bytes": POOL_BYTES, "fused_scope": "store"},
@@ -1541,6 +1854,7 @@ def main() -> int:
     torch.cuda.synchronize()
     pooled["launches"] = dict(LAUNCHES)
     pooled["wall_s"] = time.perf_counter() - t0
+    pooled["k1"] = k1_per_call(pooled)
     emit({"phase": "pool_service", "card": card, **pooled})
     same_as_staged(staged, pooled)
     # K5 does not run here: a store-view miss admits every page of the
@@ -1565,8 +1879,7 @@ def main() -> int:
         t0 = time.perf_counter()
         kw = ({"device_pool_bytes": pool_bytes, "fused_scope": scope}
               if pool_bytes else {})
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
+        zero_counts()
         on_card = replay("cuda", n_submits=190, **kw)
         torch.cuda.synchronize()
         launched = dict(LAUNCHES)

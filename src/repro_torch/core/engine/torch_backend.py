@@ -1,7 +1,8 @@
 """Torch execution backend: routes the engine's primitives through the
 hand-written CUDA kernels in ``repro_torch.kernels``.
 
-  * ``merge_runs`` and ``ingest_run`` -> K1 ``merge_pair``;
+  * ``merge_runs`` and ``ingest_run`` -> K1's k-run form, one launch a
+    call;
   * ``bloom_build`` -> K2, ``bloom_probe`` and ``bloom_probe_tier`` (the
     staged read path's Bloom gate of a whole tier) -> K5;
   * ``lookup_batch`` -> ``torch.searchsorted`` on the device;
@@ -57,6 +58,7 @@ class TorchBackend(ExecutionBackend):
         self.device = resolve_device(device)
         self.k_hashes = k_hashes
         self.launches = LAUNCHES
+        self._staging = merge_k.Staging(self.device)
 
     def _to(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(
@@ -64,21 +66,20 @@ class TorchBackend(ExecutionBackend):
 
     # -- merge ---------------------------------------------------------------
     def merge_runs(self, runs):
+        """K1's k-run form: one copy in, one launch and one copy back
+        whatever the number of runs (``merge_k.merge_runs_host``)."""
         runs = [(np.asarray(k, np.int64), np.asarray(v, np.int64))
                 for k, v in runs if len(k)]
         if not runs:
             return np.empty(0, np.int64), np.empty(0, np.int64)
         if len(runs) == 1:
             return runs[0]
-        keys = self._to(np.concatenate([k for k, _ in runs]))
-        vals = self._to(np.concatenate([v for _, v in runs]))
-        keys, vals = merge_k.merge_runs(keys, vals, [len(k) for k, _ in runs])
-        return keys.cpu().numpy(), vals.cpu().numpy()
+        return merge_k.merge_runs_host(runs, self.device, self._staging)
 
     # -- write ingest --------------------------------------------------------
     def ingest_run(self, keys, vals):
         """Batch sort+dedup through K1: the canonical ingest order is
-        computed on the host, the kernel merges the two halves of the
+        computed on the host, one K1 call merges the two halves of the
         ordered batch carrying batch positions, and values are gathered
         on the host from the surviving positions."""
         keys = np.asarray(keys, np.int64)
@@ -86,9 +87,11 @@ class TorchBackend(ExecutionBackend):
         if len(keys) == 0:
             return keys, vals, np.empty(0, np.int64)
         order = ingest_order(keys)
-        ks, src = merge_k.ingest_run(self._to(keys[order]), self._to(order))
-        src = src.cpu().numpy()
-        return ks.cpu().numpy(), vals[src], src
+        ordered, h = keys[order], len(keys) // 2
+        ks, src = merge_k.merge_runs_host(
+            [(ordered[:h], order[:h]), (ordered[h:], order[h:])],
+            self.device, self._staging)
+        return ks, vals[src], src
 
     # -- bloom ---------------------------------------------------------------
     def bloom_build(self, keys):

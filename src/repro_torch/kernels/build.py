@@ -28,7 +28,7 @@ _P, _I64, _I32, _INT, _F32 = (ctypes.c_void_p, ctypes.c_int64,
                               ctypes.c_int32, ctypes.c_int, ctypes.c_float)
 # C entry points: argument types, each returning cudaGetLastError().
 SIGNATURES = {
-    "merge_pair": [_P, _P, _I64, _P, _P, _I64, _P, _P, _P, _P],
+    "merge_runs": [_P, _INT, _I64, _P, _P, _P],
     "bloom_build": [_P, _I64, _I32, _INT, _P, _P],
     "bloom_probe": [_P, _I32, _INT, _P, _I64, _P, _P],
     "bloom_probe_tier": [_P, _I64, _INT, _P, _P, _I64, _P, _P],

@@ -1,23 +1,41 @@
-"""K1: merge of two sorted int64 runs by rank (``csrc/merge.cu``).
+"""K1: stable merge of sorted int64 runs by rank (``csrc/merge.cu``).
 
-``merge_pair`` is the wrapper: on CUDA tensors it launches the kernel, on
-CPU tensors it runs ``merge_pair_plain``, the same function in plain
-PyTorch. ``merge_runs`` and ``ingest_run`` compose it into the engine's
-two uses, as ``repro.kernels.merge.ops`` composes the TPU kernel:
+Two wrappers of one C entry point. On CUDA tensors they launch it, on
+CPU tensors they run the plain version beside them:
 
-  * ``merge_runs`` folds k runs newest-first, one merge per older run;
-  * ``ingest_run`` merges the two halves of a write batch that the host
-    put in ingest order, carrying batch positions in the value channel.
+  * ``merge_runs(packed, k, n)``: k runs, newest first, packed with their
+    offsets in one int64 tensor (``pack_runs``); the C entry point picks
+    its route by size (``ROUTES``); plain ``merge_runs_plain``.
+  * ``merge_pair(ak, av, bk, bv)``: run A (newer) with run B (older) in
+    separate tensors, packed on their device (``pack_pair``) for
+    ``merge_runs`` with k = 2; plain ``merge_pair_plain``.
 
-Keys and values are int64 with explicit lengths: no sentinel padding and
-no domain limit.
+Both return the stable merge (the newest run wins ties) and the keep flag
+of every slot: True at the first, i.e. newest, occurrence of its key.
+
+``merge_runs_host`` is the engine's call, the same on the card and on the
+CPU: it joins adjacent runs that are disjoint and in order
+(``run_offsets``), packs the runs into one host buffer, copies it to the
+device once, launches once, copies the keys, values and flags back once,
+and compacts on the host (``compact``), as the reference compacts on the
+host. Keys and values are int64 with explicit lengths: no sentinel
+padding and no domain limit.
 """
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
 from .. import build
 from .._launch import LAUNCHES, expect, on_card, stream_of
+
+# merge.cu's kTileThreads x kTileItems: the outputs of one merge-path block.
+TILE = 1024
+# Launches by the route the C entry point reported, one per call.
+ROUTE_NAMES = ("shared", "merge_path", "global")
+ROUTES = dict.fromkeys(ROUTE_NAMES, 0)
 
 
 def merge_pair_plain(ak, av, bk, bv):
@@ -30,6 +48,26 @@ def merge_pair_plain(ak, av, bk, bv):
     keep = torch.ones(len(out_k), dtype=torch.bool, device=k.device)
     keep[1:] = out_k[1:] != out_k[:-1]
     return out_k, out_v, keep
+
+
+def merge_path_splits_plain(ka, kb, diags):
+    """For each output diagonal ``d`` of the merge of sorted ``ka`` (newer)
+    and ``kb``, how many of the first ``d`` slots come from ``ka``: the
+    largest ``ai`` with ``ka[ai-1] <= kb[d-ai]`` (A wins ties), the split
+    that ``merge.cu``'s tiles search for. Computed from the rank rule: A's
+    element i lands in slot ``i + #{kb < ka[i]}``, so the split is the
+    number of those slots below ``d``."""
+    slot_a = (torch.arange(len(ka), device=ka.device)
+              + torch.searchsorted(kb, ka))
+    return torch.searchsorted(slot_a, diags)
+
+
+def pack_pair(ak, av, bk, bv):
+    """Runs A (newer) and B packed for ``merge_runs`` with k = 2, on their
+    device: the offsets 0, len(A), len(A) + len(B), the keys, the values."""
+    na, n = len(ak), len(ak) + len(bk)
+    offs = torch.tensor([0, na, n], dtype=torch.int64).to(ak.device)
+    return torch.cat([offs, ak, bk, av, bv])
 
 
 def merge_pair(ak, av, bk, bv):
@@ -46,44 +84,129 @@ def merge_pair(ak, av, bk, bv):
     if not on_card(ak, av, bk, bv):
         return merge_pair_plain(ak, av, bk, bv)
     n = len(ak) + len(bk)
-    out_k = torch.empty(n, dtype=torch.int64, device=ak.device)
-    out_v = torch.empty(n, dtype=torch.int64, device=ak.device)
-    keep = torch.empty(n, dtype=torch.bool, device=ak.device)
+    return unpack(merge_runs(pack_pair(ak, av, bk, bv), 2, n), n)
+
+
+# --------------------------- the k-run form ----------------------------------
+def out_words(n: int) -> int:
+    """Length of a k-run result: n keys, n values, n keep bytes."""
+    return 2 * n + (n + 7) // 8
+
+
+def unpack(out, n: int):
+    """``(keys, vals, keep)`` views of a k-run result ``out``."""
+    return (out[:n], out[n:2 * n],
+            out[2 * n:].view(torch.uint8)[:n].view(torch.bool))
+
+
+def merge_runs_plain(packed, k: int, n: int):
+    """Plain version of the k-run form: a stable sort of the runs' keys,
+    which are packed newest run first, and the first-occurrence flags, in
+    the kernel's output layout (``out_words(n)``, flag padding zero)."""
+    keys, vals = packed[k + 1:k + 1 + n], packed[k + 1 + n:]
+    order = torch.sort(keys, stable=True).indices
+    out = torch.zeros(out_words(n), dtype=torch.int64, device=packed.device)
+    ok, ov, keep = unpack(out, n)
+    ok.copy_(keys[order])
+    ov.copy_(vals[order])
+    keep[:1] = True
+    keep[1:] = ok[1:] != ok[:-1]
+    return out
+
+
+def merge_runs(packed, k: int, n: int):
+    """Merge the k sorted runs in ``packed`` (int64 ``[k + 1 + 2n]``: the
+    offsets ``0 = offs[0] <= ... <= offs[k] = n``, the keys, the values;
+    runs newest first). Returns int64 ``[out_words(n)]`` on the same
+    device: the merged keys, the merged values, then one keep byte a slot
+    (``unpack``)."""
+    expect(packed, "packed", torch.int64)
+    if k < 1 or len(packed) != k + 1 + 2 * n:
+        raise ValueError(f"packed holds {len(packed)} words, not the "
+                         f"k + 1 + 2n = {k + 1 + 2 * n} of k={k} runs of "
+                         f"n={n} keys (k >= 1)")
+    if not on_card(packed):
+        return merge_runs_plain(packed, k, n)
+    out = torch.empty(out_words(n), dtype=torch.int64, device=packed.device)
     if n == 0:
-        return out_k, out_v, keep
-    rc = build.library().merge_pair(
-        ak.data_ptr(), av.data_ptr(), len(ak), bk.data_ptr(), bv.data_ptr(),
-        len(bk), out_k.data_ptr(), out_v.data_ptr(), keep.data_ptr(),
-        stream_of(ak))
-    build.check(rc, "merge_pair")
+        return out
+    route = ctypes.c_int()
+    rc = build.library().merge_runs(packed.data_ptr(), k, n, out.data_ptr(),
+                                    stream_of(packed), ctypes.byref(route))
+    build.check(rc, "merge_runs")
     LAUNCHES["merge_pair"] += 1
-    return out_k, out_v, keep
+    ROUTES[ROUTE_NAMES[route.value]] += 1
+    return out
 
 
-def merge_runs(keys, vals, lens):
-    """Fold k sorted runs, stored back to back in ``keys``/``vals`` with
-    run lengths ``lens`` (newest run first), into one sorted unique run:
-    newest wins. Returns ``(keys, vals)`` on the input's device."""
-    offs = [0]
-    for n in lens:
-        offs.append(offs[-1] + int(n))
-    ka, va = keys[:offs[1]], vals[:offs[1]]
-    for i in range(1, len(lens)):
-        kb, vb = keys[offs[i]:offs[i + 1]], vals[offs[i]:offs[i + 1]]
-        mk, mv, keep = merge_pair(ka, va, kb, vb)
-        ka, va = mk[keep], mv[keep]
-    return ka, va
+# --------------------------- the engine's call -------------------------------
+def run_offsets(runs) -> np.ndarray:
+    """Offsets of ``runs`` (sorted ``(keys, vals)``, newest first) packed
+    back to back, with adjacent runs joined wherever the last key of one
+    is below the first key of the next (empty runs vanish): the tables of
+    one level or one tier become one run. Joining moves no element, so the
+    merge is the same; a call that joins down to one run still drops
+    duplicates."""
+    offs, n, last = [0], 0, None
+    for k, _ in runs:
+        if len(k) == 0:
+            continue
+        if last is not None and last >= k[0]:
+            offs.append(n)
+        n += len(k)
+        last = k[-1]
+    offs.append(n)
+    return np.array(offs, np.int64)
 
 
-def ingest_run(ordered_keys, positions):
-    """Dedup a write batch the host put in ingest order (ascending keys,
-    newest occurrence first among equals; ``positions`` are the batch
-    positions in that order). The batch is split at its midpoint and the
-    halves merged: A-first ties and the keep flags keep exactly the first,
-    i.e. newest, occurrence of every key, whether its copies sit in one
-    half or span the split. Returns ``(unique_keys, surviving_positions)``.
-    """
-    h = len(ordered_keys) // 2
-    mk, mp, keep = merge_pair(ordered_keys[:h], positions[:h],
-                              ordered_keys[h:], positions[h:])
-    return mk[keep], mp[keep]
+def pack_runs(runs, offs, buf) -> None:
+    """Write ``offs``, then the keys and the values of ``runs`` into the
+    int64 numpy array ``buf`` (``len(offs) + 2 * offs[-1]`` long)."""
+    k1, n = len(offs), int(offs[-1])
+    buf[:k1] = offs
+    np.concatenate([k for k, _ in runs], out=buf[k1:k1 + n])
+    np.concatenate([v for _, v in runs], out=buf[k1 + n:k1 + 2 * n])
+
+
+def compact(out, n: int):
+    """Numpy copies of the kept keys and values of a k-run result held in
+    the int64 numpy array ``out`` (the views of ``unpack``, in numpy)."""
+    keep = out[2 * n:].view(np.uint8)[:n].view(bool)
+    return out[:n][keep], out[n:2 * n][keep]
+
+
+class Staging:
+    """One grow-only int64 host buffer for the engine's calls on
+    ``device``, pinned when that is a GPU (pinned allocations cost far
+    more than they save when made per call), and its numpy view."""
+
+    def __init__(self, device):
+        self.pin = torch.device(device).type == "cuda"
+        self.buf = torch.empty(0, dtype=torch.int64)
+        self.host = self.buf.numpy()
+
+    def take(self, words: int):
+        """The whole buffer, at least ``words`` long: (tensor, numpy)."""
+        if words > len(self.buf):
+            size = max(words, 2 * len(self.buf), 1 << 16)
+            self.buf = torch.empty(size, dtype=torch.int64,
+                                   pin_memory=self.pin)
+            self.host = self.buf.numpy()
+        return self.buf, self.host
+
+
+def merge_runs_host(runs, device, staging: Staging):
+    """Merge host ``runs`` (numpy int64 ``(keys, vals)``, sorted, newest
+    first, at least one key in all) into sorted unique numpy ``(keys,
+    vals)``, the newest copy of each key kept: one copy to ``device``, one
+    ``merge_runs`` launch, one copy back."""
+    offs = run_offsets(runs)
+    k, n = len(offs) - 1, int(offs[-1])
+    m, w = k + 1 + 2 * n, out_words(n)
+    buf, host = staging.take(m + w)
+    pack_runs(runs, offs, host[:m])
+    out = merge_runs(buf[:m].to(device, non_blocking=True), k, n)
+    # The one copy back. It returns once the copy in and the launch before
+    # it on the stream have run, so the next call may refill the buffer.
+    buf[m:m + w].copy_(out)
+    return compact(host[m:m + w], n)

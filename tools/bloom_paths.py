@@ -26,9 +26,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
-import shutil
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -36,42 +33,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from variants import (card, constant, cuda_ms, profiled_ms_per_call,
+                      use_variant, with_constant)
+
 ROOT = Path(__file__).resolve().parent.parent
 K_HASHES = 7
 TOMBSTONE = -(2**31) + 1
-_CONST = re.compile(r"constexpr uint32_t kSharedMaxSlots = (\d+);")
-_MAX = re.compile(r"constexpr uint32_t kMaxSharedSlots = (\d+);")
-
-
-def cuda_ms(fn, reps: int = 25) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn()`` after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def device_ms_per_call(fn, reps: int) -> float:
-    """Device time of one call of ``fn``: every device event under the
-    profiler over ``reps`` calls, divided by ``reps``."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0.0)
-             for e in prof.key_averages())
-    return us / reps / 1e3
 
 
 def inputs(bloom_sizing):
@@ -93,14 +60,8 @@ def reading(bloom_k, keys, n_slots: int, reps: int, what: str) -> dict:
                                                        K_HASHES)):
         raise AssertionError(f"bloom_build ({what}) differs from its plain "
                              f"version at {len(keys)} keys")
-    return {"device_ms": device_ms_per_call(fn, reps), "call_ms": cuda_ms(fn)}
-
-
-def _use(build, csrc: Path, build_dir: Path) -> None:
-    """Point the kernel build at ``csrc``; build and load it."""
-    build.CSRC, build.BUILD_DIR = csrc, build_dir
-    build.library.cache_clear()
-    build.library()
+    return {"device_ms": profiled_ms_per_call(fn, reps),
+            "call_ms": cuda_ms(fn)}
 
 
 def sweep_variants(reps: int):
@@ -108,21 +69,16 @@ def sweep_variants(reps: int):
     from repro_torch.kernels import build
     from repro_torch.kernels.bloom import bloom as bloom_k
     source = (build.CSRC / "bloom.cu").read_text()
-    cross = int(_CONST.search(source).group(1))
-    most = int(_MAX.search(source).group(1))
+    cross = constant(source, "kSharedMaxSlots")
+    most = constant(source, "kMaxSharedSlots")
     rows = {n: {"keys": n, "n_slots": ns,
                 "this_checkout": "shared" if ns <= cross else "global"}
             for n, _, ns in inputs(bloom_sizing)}
+    original = build.CSRC
     with tempfile.TemporaryDirectory() as tmp:
         for variant, value in (("shared", most), ("global", 0)):
-            csrc = Path(tmp) / variant / "csrc"
-            shutil.copytree(build.CSRC, csrc)
-            text, hits = _CONST.subn(
-                f"constexpr uint32_t kSharedMaxSlots = {value};", source)
-            if hits != 1:
-                raise ValueError("kSharedMaxSlots not found once in bloom.cu")
-            (csrc / "bloom.cu").write_text(text)
-            _use(build, csrc, csrc.parent / "build")
+            use_variant(build, original, Path(tmp) / variant, {
+                "bloom.cu": with_constant(source, "kSharedMaxSlots", value)})
             for n, keys, ns in inputs(bloom_sizing):
                 if ns <= value or variant == "global":
                     rows[n][variant] = reading(bloom_k, keys, ns, reps,
@@ -151,11 +107,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("bloom_paths: needs one NVIDIA GPU", file=sys.stderr)
         return 2
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    lines = [{"card": card, "src": args.src or "this checkout"}]
+    lines = [{"card": card(), "src": args.src or "this checkout"}]
     if args.src:
         lines += sweep_checkout(args.src, args.reps)
     else:

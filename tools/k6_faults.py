@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import shutil
 import sys
 import tempfile
 from pathlib import Path
@@ -77,14 +76,6 @@ def apply_fault(source: str, name: str) -> str:
     return source
 
 
-def _use(build, csrc: Path, build_dir: Path) -> str:
-    """Point the kernel build at ``csrc``; build and load it."""
-    build.CSRC, build.BUILD_DIR = csrc, build_dir
-    build.library.cache_clear()
-    build.library()
-    return str(build.library_path())
-
-
 def _readings(cs, attn_k, torch, seeds: int) -> dict:
     """Every bf16 case of cs.ATTN_CASES and cs.ATTN_EDGES, per seed."""
     out = {}
@@ -135,6 +126,7 @@ def main() -> int:
         return 1
     import chip_smoke as cs
     from repro_torch.kernels import build
+    from variants import use, use_variant
     from repro_torch.kernels.attention import attention as attn_k
 
     sound_csrc, sound_build = build.CSRC, build.BUILD_DIR
@@ -142,13 +134,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         for variant in ["sound", *FAULTS]:
             if variant == "sound":
-                lib = _use(build, sound_csrc, sound_build)
+                lib = use(build, sound_csrc, sound_build)
             else:
-                csrc = Path(tmp) / variant / "csrc"
-                shutil.copytree(sound_csrc, csrc)
-                src = csrc / "attention.cu"
-                src.write_text(apply_fault(src.read_text(), variant))
-                lib = _use(build, csrc, csrc.parent / "build")
+                text = (sound_csrc / "attention.cu").read_text()
+                lib = use_variant(build, sound_csrc, Path(tmp) / variant, {
+                    "attention.cu": apply_fault(text, variant)})
             readings = _readings(cs, attn_k, torch, args.seeds)
             every[variant] = readings
             line = _summary(variant, readings)
