@@ -17,13 +17,17 @@
    sides of its two paths; K5 on one filter and, in its tier form, on a
    tier of 512 tables of 2048 keys, a one-table tier and a tier of five
    slot counts; K4 on a tier of 512 tables of 2048 keys, K3 on a store of
-   six tiers and 512 tables; 4096 queries, half present), and times
-   kernel, plain version and a library yardstick with CUDA events (K1
-   through its one C entry, ``merge_runs``, on the timed pair packed as
-   two runs and at a scan's shape); then the host nanoseconds
-   of each part of a K2 call, of the staged path's K5 call and of K1's
-   engine call at a scan's shape and at a 2048-key ingest
-   (``host_split``). Then K6
+   six tiers and 512 tables; 4096 queries, half present; K4 and K3 also
+   at the pool phase's median calls (``POOL_LOOKUPS``) and at the edge
+   shapes of ``_lookup_edges``, with each lane count a pair, their
+   ``ti``/``ok`` against ``assign_bounds``), and times kernel, plain
+   version and a library yardstick with CUDA events (K1 through its one
+   C entry, ``merge_runs``, on the timed pair packed as two runs and at
+   a scan's shape; K4 and K3 beside an empty kernel on the same grid);
+   then the host nanoseconds of each part of a K2 call, of the staged
+   path's K5 call, of K1's engine call at a scan's shape and at a
+   2048-key ingest, and of K4's and K3's engine calls at their timed
+   shapes (``host_split``). Then K6
    (flash_attention) against its plain version in bf16 (2e-2) and f32
    (1e-5) at the serving path's prefill and decode shapes (Yi-6B heads),
    a 4096-token Yi-6B prefill and a Gemma-2-27B local layer (8192 tokens,
@@ -48,8 +52,10 @@
    store-scope fused reads, then a read-only tail of 32 submits of 4096
    zipfian Gets (YCSB C). Every Get, Scan, IOStats counter (but the
    ``fused_*`` ones) and buffer-cache count of the mixed part must equal
-   the staged phase's; K3 and K4 must have launched, and the tail must
-   have been served by the one-launch store path. (K5 does not run here:
+   the staged phase's; K3 and K4 must have launched exactly once per
+   backend call with queries (the calls' (R, K, tables) are printed as
+   ``lookup_shapes``), and the tail must have been served by the
+   one-launch store path. (K5 does not run here:
    a store-view miss admits every page of the tree before the per-tier
    loop.)
 5. Card-vs-CPU phase: one seeded stream of about 60k operations on a small
@@ -110,7 +116,8 @@ from repro_torch.core.lsm.sstable import (  # noqa: E402
     TOMBSTONE, partition_run, reset_sst_ids, sstable_from_run)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels._launch import LAUNCHES  # noqa: E402
+from repro_torch.kernels._launch import (  # noqa: E402
+    LAUNCHES, expect, stream_of)
 from repro_torch.kernels.attention import attention as attn_k  # noqa: E402
 from repro_torch.kernels.bloom import bloom as bloom_k  # noqa: E402
 from repro_torch.kernels.lookup import lookup as lookup_k  # noqa: E402
@@ -169,6 +176,11 @@ K1_TILE_EDGES = tuple(m * merge_k.TILE + d for m in (1, 8) for d in (-1, 0, 1))
 # The pool service phase: a device page pool of 2 GiB of logical 16 KB
 # pages (131,072), room for every disk table of the 2**20-key store.
 POOL_BYTES = 2 << 30
+# K4's and K3's median calls in the pool phase (its ``lookup_shapes``:
+# 560 queries; K4 over 75 tables, K3 over two tiers of 512 tables), held
+# and timed beside the timed shapes: name -> (tables a tier, queries).
+POOL_LOOKUPS = {"probe_tier_pool": ([75], 560),
+                "probe_store_pool": ([50, 462], 560)}
 
 
 def emit(obj) -> None:
@@ -298,51 +310,114 @@ def _lookup_queries(rng, tables, n_queries: int):
     return np.concatenate([present, absent]).astype(np.int64)
 
 
+def _hold_lookup(view, q, store: bool, what: str) -> int:
+    """One K3 (``store``) or K4 call on ``view`` against its plain version,
+    field by field, and against ``assign_bounds`` for ``ti``/``ok``.
+    Returns the largest difference."""
+    kern = lookup_k.probe_store if store else lookup_k.probe_tier
+    plain = lookup_k.probe_store_plain if store else lookup_k.probe_tier_plain
+    R, K = view.n_tiers, len(q)
+    got = lookup_k.unpack(kern(view, q, K_HASHES), R, K, store)
+    want = lookup_k.unpack(plain(view, q, K_HASHES), R, K, store)
+    err = _max_abs_err(list(got.values()), list(want.values()))
+    t_off = view.t_off.tolist()
+    qn = q.cpu().numpy()
+    for r in range(R):
+        a, b = t_off[r], t_off[r + 1]
+        ti, ok = assign_bounds(view.starts[a:b].cpu().numpy(),
+                               view.ends[a:b].cpu().numpy(), qn)
+        if not (np.array_equal(got["ti"][r].cpu().numpy(), ti)
+                and np.array_equal(got["ok"][r].cpu().numpy(), ok)):
+            raise AssertionError(f"{what}: ti/ok differ from assign_bounds "
+                                 f"in tier {r}")
+    if err:
+        raise AssertionError(f"{what}: differs from its plain version "
+                             f"({err})")
+    return err
+
+
+# K3's and K4's edge shapes beside the timed ones: (tier sizes in tables,
+# keys a table, queries). One table; R = 1 and R = 8; a tier of 4,097
+# tables alone and with two more tiers; query counts no multiple of a
+# block's queries. With the timed and pool shapes they give each kernel
+# every lane count of lookup.cu's rule (by pairs, R x queries): K4 32
+# (1,001), 16 (2,999, 4,096), 8 (9,001), 4 (16,385); K3 32 (1,001,
+# 1,120), 16 (8,008), 8 (8,997, 9,001), 4 (16,385, 24,576).
+def _lookup_edges():
+    return [("one_table", [1], 2048, 1001),
+            ("r1", [64], 2048, 9001),
+            ("r8", [2, 2, 4, 8, 16, 32, 64, 128], 2048, 1001),
+            ("many_tables", [4097], 16, 16385),
+            ("many_tables_store", [3, 40, 4097], 16, 2999)]
+
+
 def check_lookup(dev, *, tier_tables: int, table_keys: int, store_sizes,
-                 n_queries: int, seed: int = 0) -> dict:
+                 n_queries: int, pool_shapes=None, edges=None,
+                 seed: int = 0) -> dict:
     """Hold K4 (``probe_tier``) and K3 (``probe_store``) against their plain
-    versions on views built by ``TorchBackend`` on ``dev``: one tier of
-    ``tier_tables`` tables, and a store of ``len(store_sizes)`` tiers."""
+    versions on views built by ``TorchBackend`` on ``dev``: the timed
+    shapes (one tier of ``tier_tables`` tables, a store of
+    ``len(store_sizes)`` tiers; ``n_queries`` queries, half present), each
+    of ``pool_shapes`` (name -> (tier sizes, queries): the pool phase's
+    calls, timed too; a name that starts with ``probe_store`` is K3's),
+    then each edge of ``edges`` (``_lookup_edges()`` by default) on both
+    kernels: K4 on each of its tiers, K3 on the whole store."""
     rng = np.random.default_rng(seed)
     tb = TorchBackend(device=dev)
     bloom = lambda s: tb.bloom_build(s.keys)  # noqa: E731
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(dev)  # noqa: E731
     reset_sst_ids()
     tier = _lookup_tiers(rng, [tier_tables], table_keys)[0]
-    view = tb.prepare_tier(tier, bloom)
-    q = _lookup_queries(rng, tier, n_queries)
-    ti, _ = assign_bounds(view.starts, view.ends, q)
-    args = (view.payload, T(q), T(ti), K_HASHES)
-    out = lookup_k.probe_tier(*args)
-    err = {"probe_tier": _max_abs_err([out],
-                                      [lookup_k.probe_tier_plain(*args)])}
-    if err["probe_tier"] or not bool(out[2, : n_queries // 2].all()):
-        raise AssertionError("probe_tier differs or missed a present key")
-    timed = {"probe_tier": (args, view.lens[ti])}
+    tv = tb.prepare_tier(tier, bloom)
+    view = tv.payload
+    q = T(_lookup_queries(rng, tier, n_queries))
+    err = {"probe_tier": _hold_lookup(view, q, False, "probe_tier")}
+    out = lookup_k.unpack(lookup_k.probe_tier(view, q, K_HASHES), 1,
+                          n_queries, False)
+    if not bool(out["hit"][0, : n_queries // 2].all()):
+        raise AssertionError("probe_tier missed a present key")
+    timed = {"probe_tier": (tv, q, out["ti"][0].long())}
     tiers = _lookup_tiers(rng, store_sizes, table_keys)
-    sview = tb.prepare_store(tiers, bloom)
-    q = _lookup_queries(rng, [t for tr in tiers for t in tr], n_queries)
-    ti = np.stack([assign_bounds(sview.tier_starts[r], sview.tier_ends[r],
-                                 q)[0] for r in range(len(tiers))])
-    p = sview.payload
-    args = (p, p["t_off"], T(q), T(ti), K_HASHES)
-    out = lookup_k.probe_store(*args)
-    err["probe_store"] = _max_abs_err([out],
-                                      [lookup_k.probe_store_plain(*args)])
-    win = out[-1]
-    if err["probe_store"] or not bool((win[: n_queries // 2] >= 0).all()) \
+    sv = tb.prepare_store(tiers, bloom)
+    sview = sv.payload
+    q = T(_lookup_queries(rng, [t for tr in tiers for t in tr], n_queries))
+    err["probe_store"] = _hold_lookup(sview, q, True, "probe_store")
+    out = lookup_k.unpack(lookup_k.probe_store(sview, q, K_HASHES),
+                          len(tiers), n_queries, True)
+    win = out["win"]
+    if not bool((win[: n_queries // 2] >= 0).all()) \
             or not bool((win > 0).any()):
-        raise AssertionError("probe_store differs or missed a present key")
-    lens = np.stack([sview.tier_lens[r][ti[r]] for r in range(len(tiers))])
-    timed["probe_store"] = (args, lens)
-    return {"err": err, "timed": timed,
-            "view_bytes": {"probe_tier": _view_bytes(view),
-                           "probe_store": _view_bytes(sview)}}
-
-
-def _view_bytes(view) -> int:
-    """Device bytes held by a prepared view's tensors."""
-    return sum(t.nbytes for t in view.payload.values())
+        raise AssertionError("probe_store missed a present key")
+    timed["probe_store"] = (sv, q, out["ti"].long())
+    for name, (sizes, k) in (pool_shapes or {}).items():
+        store = name.startswith("probe_store")
+        tiers = _lookup_tiers(rng, sizes, table_keys)
+        bv = (tb.prepare_store(tiers, bloom) if store
+              else tb.prepare_tier(tiers[0], bloom))
+        q = T(_lookup_queries(rng, [t for tr in tiers for t in tr], k))
+        kind = "probe_store" if store else "probe_tier"
+        err[kind] = max(err[kind], _hold_lookup(bv.payload, q, store,
+                                                name))
+        kern = getattr(lookup_k, kind)
+        out = lookup_k.unpack(kern(bv.payload, q, K_HASHES), len(tiers), k,
+                              store)
+        timed[name] = (bv, q, out["ti"].long())
+    cases = {}
+    for what, sizes, keys, k in (_lookup_edges() if edges is None
+                                 else edges):
+        tiers = _lookup_tiers(rng, sizes, keys)
+        q = T(_lookup_queries(rng, [t for tr in tiers for t in tr], k))
+        sv = tb.prepare_store(tiers, bloom).payload
+        e = _hold_lookup(sv, q, True, f"probe_store ({what})")
+        err["probe_store"] = max(err["probe_store"], e)
+        for tr in tiers:
+            e = _hold_lookup(tb.prepare_tier(tr, bloom).payload, q, False,
+                             f"probe_tier ({what})")
+            err["probe_tier"] = max(err["probe_tier"], e)
+        cases[what] = {"tiers": sizes, "table_keys": keys, "queries": k}
+    return {"err": err, "timed": timed, "cases": cases,
+            "view_bytes": {"probe_tier": view.nbytes,
+                           "probe_store": sview.nbytes}}
 
 
 # --------------------------- K1: the k-run form ------------------------------
@@ -574,7 +649,7 @@ def check_kernels(dev, *, merge_shapes, ingest_n: int, sst_keys: int,
     err.update(lk["err"])
     timed.update(lk["timed"])
     return {"err": err, "timed": timed, "view_bytes": lk["view_bytes"],
-            "k1_cases": k1["cases"]}
+            "k1_cases": k1["cases"], "lookup_cases": lk["cases"]}
 
 
 def bloom_keys(rng, n: int) -> np.ndarray:
@@ -722,25 +797,52 @@ def time_kernels(timed: dict) -> dict:
             lambda: torch.gather(flat, 0, slots).view(-1, K_HASHES).all(-1)),
         "device_ms": kernel_device_ms(tier, "bloom_probe_kernel"),
         "shape": [len(q), len(filts)]}
-    # K4 and K3: the view's keys, values and filters stay in L2 across
-    # calls (printed as view_bytes), so what must cross device memory is
-    # the queries and assigned tables read once and the int64 fields
-    # written once. Operations: k Bloom slots and ceil(log2 len) binary
-    # search steps per (tier, query), len that of the assigned table.
-    for name, kern in (("probe_tier", lookup_k.probe_tier),
-                       ("probe_store", lookup_k.probe_store)):
-        (args, lens), plain = timed[name], getattr(lookup_k, name + "_plain")
-        q, ti = args[-3], args[-2]
+    out.update(time_lookup(timed))
+    return out
+
+
+def time_lookup(timed: dict) -> dict:
+    """K4 and K3 at their timed shapes and at the pool phase's
+    (``POOL_LOOKUPS``): each ``probe_tier*`` and ``probe_store*`` entry
+    of ``timed``. The view's keys, values and
+    filters stay in L2 across calls (printed as view_bytes), so what must
+    cross device memory is the queries and each table's min_key and
+    max_key read once, and the fields written once at their widths (19 B
+    a pair, 4 B a query for K3's winner). Operations: k Bloom slots and
+    ceil(log2 len) binary search steps per (tier, query), len that of the
+    assigned table. The floor: an empty kernel on the same grid, launched
+    the same way."""
+    lib = build.library()
+    out = {}
+    for name in [n for n in timed if n.startswith(("probe_tier",
+                                                     "probe_store"))]:
+        kind = "probe_store" if name.startswith("probe_store") \
+            else "probe_tier"
+        store = kind == "probe_store"
+        bview, q, ti = timed[name]
+        view = bview.payload
+        kern = getattr(lookup_k, kind)
+        plain = getattr(lookup_k, kind + "_plain")
+        gti = view.t_off[:-1, None] + ti.reshape(view.n_tiers, -1)
+        lens = view.lens[gti].cpu().numpy()
         steps = int(np.ceil(np.log2(np.maximum(lens, 1))).sum())
+        st = stream_of(q)
+
+        def floor():
+            build.check(lib.probe_floor(view.desc_ptr, len(q), st),
+                        "probe_floor")
         out[name] = {
-            "ms": cuda_ms(lambda: kern(*args)),
-            "plain_ms": cuda_ms(lambda: plain(*args)),
-            **bound(q.nbytes + ti.nbytes + kern(*args).nbytes,
-                    ti.numel() * K_HASHES + steps),
+            "ms": cuda_ms(lambda: kern(view, q, K_HASHES)),
+            "plain_ms": cuda_ms(lambda: plain(view, q, K_HASHES)),
+            **bound(q.nbytes + 16 * view.n_tables
+                    + lookup_k.out_bytes(view.n_tiers, len(q), store),
+                    lens.size * K_HASHES + steps),
             "library_ms": None,
-            "device_ms": kernel_device_ms(lambda: kern(*args),
-                                          name + "_kernel"),
-            "shape": list(ti.shape)}
+            "device_ms": kernel_device_ms(lambda: kern(view, q, K_HASHES),
+                                          "probe_kernel"),
+            "floor_ms": cuda_ms(floor),
+            "floor_device_ms": kernel_device_ms(floor, "empty_kernel"),
+            "shape": [view.n_tiers, len(q), view.n_tables]}
     return out
 
 
@@ -759,11 +861,12 @@ def _median_ns(fn, reps: int = 500) -> float:
 def host_split(timed: dict) -> dict:
     """Host nanoseconds of each part of a K2 call (the timed 2,048 keys)
     and of the staged path's K5 call (``TorchBackend.bloom_probe_tier`` on
-    the timed tier, host keys), beside the whole call. ``removed`` holds
+    the timed tier, host keys), beside the whole call; then K4's and K3's
+    (``lookup_host_split``) and K1's (``k1_host_split``) engine calls. ``removed`` holds
     the parts the wrappers no longer take, timed the same way: a
     zero-filled filter and a ``torch.cuda.Stream`` object per call; and
     one single-table backend probe, as the per-table staged loop made."""
-    from repro_torch.kernels._launch import expect, on_card, stream_of
+    from repro_torch.kernels._launch import on_card
     lib = build.library()
     sk, n_slots = timed["bloom_build"]
     shape = (128, n_slots // 128)
@@ -824,9 +927,76 @@ def host_split(timed: dict) -> dict:
                 lambda: tb.bloom_probe(tuples[0], qn[first]), reps=200),
             "single_table_queries": int(first.sum())}}
     return {"bloom_build": k2, "bloom_probe_tier": k5,
+            "lookup_fused": lookup_host_split(*timed["probe_tier"][:2],
+                                              store=False),
+            "lookup_store_fused": lookup_host_split(
+                *timed["probe_store"][:2], store=True),
             "merge_runs_scan": k1_host_split(dev, timed["merge_runs"]),
             "ingest_run_2048": k1_host_split(
                 dev, *_ingest_batch(np.random.default_rng(5), 2048))}
+
+
+def lookup_host_split(bview, q, *, store: bool, reps: int = 200) -> dict:
+    """Host nanoseconds of each step of K4's (K3's with ``store``) engine
+    call on the timed view and queries (``lookup.probe_host``: the queries
+    into the pinned staging buffer, the device buffer and the pinned
+    result, the one C call that copies in, launches, copies back and
+    synchronises, and the unpacking with ``pos``/``ti`` widened as the
+    backend does), medians of the steps stamped in turn inside whole
+    calls, beside the whole backend call (``lookup_fused`` or
+    ``lookup_store_fused``). ``removed`` times what the call no longer
+    does: the host's assignment (``assign_bounds`` per tier), a pageable
+    copy in of the queries and the (R + 1) K assigned tables, and a
+    ``.cpu()`` of the former int64 [4 R + 1, K] output; and, as
+    yardsticks, the same round trip made of PyTorch calls: the queries
+    in with ``.to(non_blocking=True)``, the fields back with ``copy_``
+    into the pinned result."""
+    view = bview.payload
+    dev = view.device
+    tb = TorchBackend(device=dev)
+    qn = q.cpu().numpy()
+    R, K = view.n_tiers, len(qn)
+    w = lookup_k.out_words(R, K, store)
+    steps = ("stage", "buffers", "call", "unpack")
+    ns = {s: [] for s in steps}
+    for _ in range(reps + 1):
+        t = [time.perf_counter_ns()]
+        buf, host = tb._staging.take(K)
+        host[:K] = qn
+        t.append(time.perf_counter_ns())
+        d = tb._staging.take_device(K + w).data_ptr()
+        res = torch.empty(w, dtype=torch.int64, pin_memory=True)
+        t.append(time.perf_counter_ns())
+        lookup_k.launch(store, view, d, K, K_HASHES, d + 8 * K,
+                        buf.data_ptr(), res.data_ptr())
+        t.append(time.perf_counter_ns())
+        f = lookup_k.unpack(res.numpy(), R, K, store)
+        f["ti"].astype(np.int64), f["pos"].astype(np.int64)
+        t.append(time.perf_counter_ns())
+        for s, a, b in zip(steps, t, t[1:]):
+            ns[s].append(b - a)
+    starts = [np.asarray(x) for x in (bview.tier_starts if store
+                                      else [bview.starts])]
+    ends = [np.asarray(x) for x in (bview.tier_ends if store
+                                    else [bview.ends])]
+    old_in = torch.from_numpy(np.zeros((R + 1, K), np.int64))
+    old_out = torch.zeros((4 * R + 1, K), dtype=torch.int64, device=dev)
+    dbuf = tb._staging.take_device(K + w)
+    whole = ((lambda: tb.lookup_store_fused(bview, qn)) if store
+             else (lambda: tb.lookup_fused(bview, qn)))
+    return {
+        "tiers": R, "queries": K, "tables": view.n_tables,
+        **{s: float(np.median(v[1:])) for s, v in ns.items()},
+        "whole": _median_ns(whole, reps=reps),
+        "removed": {
+            "assign_bounds": _median_ns(lambda: [
+                assign_bounds(a, b, qn) for a, b in zip(starts, ends)]),
+            "pageable_copy_in": _median_ns(lambda: old_in.to(dev)),
+            "copy_back_cpu": _median_ns(lambda: old_out.cpu().numpy()),
+            "torch_copy_in": _median_ns(
+                lambda: buf[:K].to(dev, non_blocking=True)),
+            "torch_copy_back": _median_ns(
+                lambda: res.copy_(dbuf[K:K + w]))}}
 
 
 def _ingest_batch(rng, n: int):
@@ -937,6 +1107,50 @@ def timed_calls(acc: dict, obj, names):
             delattr(obj, n)
 
 
+@contextlib.contextmanager
+def lookup_shapes(acc: dict, backend):
+    """(R, K, tables) of every K4 (``lookup_fused``, R = 1) and K3
+    (``lookup_store_fused``) call of ``backend``, listed in ``acc`` under
+    the kernel's name."""
+    def wrap(name, fn, store):
+        def rec(view, queries):
+            lens = (np.concatenate(view.tier_lens) if store else view.lens)
+            acc[name].append((view.num_tiers if store else 1, len(queries),
+                              view.num_tables,
+                              float(np.median(lens)) if len(lens) else 0))
+            return fn(view, queries)
+        return rec
+
+    for prim, name, store in (("lookup_fused", "probe_tier", False),
+                              ("lookup_store_fused", "probe_store", True)):
+        acc[name] = []
+        setattr(backend, prim, wrap(name, getattr(backend, prim), store))
+    try:
+        yield acc
+    finally:
+        for prim in ("lookup_fused", "lookup_store_fused"):
+            backend.__dict__.pop(prim, None)
+
+
+def shape_summary(shapes: dict) -> dict:
+    """Per kernel: calls, the calls that must launch it (a query and a
+    tier), the calls by R, and the least, median and largest query and
+    table counts of its calls and of the median keys a table of each."""
+    out = {}
+    for name, rows in shapes.items():
+        if not rows:
+            out[name] = {"calls": 0, "launching_calls": 0}
+            continue
+        r, k, t, n = np.array(rows).T
+        q3 = lambda x: [int(x.min()), float(np.median(x)), int(x.max())]  # noqa: E731
+        out[name] = {"calls": len(rows),
+                     "launching_calls": int(((r > 0) & (k > 0)).sum()),
+                     "by_tiers": {int(a): int(b) for a, b in
+                                  zip(*np.unique(r, return_counts=True))},
+                     "queries": q3(k), "tables": q3(t), "table_keys": q3(n)}
+    return out
+
+
 def _key_of(ids):
     """Distinct sparse int64 keys beyond int32: an odd multiplier is a
     bijection modulo 2**40."""
@@ -1011,7 +1225,8 @@ def _state(svc, prim) -> dict:
     return {"iostats": vars(svc.store.disk.stats).copy(),
             "cache": [svc.store.disk.cache.hits, svc.store.disk.cache.misses],
             "pool": pool.stats(),
-            "view_bytes": sum(_view_bytes(v) for v in pool._views.values()),
+            "view_bytes": sum(v.payload.nbytes for v in pool._views.values()
+                              if v.payload is not None),
             "primitives": {p: [c, t] for p, (c, t) in prim.items()}}
 
 
@@ -1043,12 +1258,16 @@ def run_service(dev, *, n_keys: int, batch: int, n_mixed: int, gets: int,
                       **(cfg_kw or {}))
     svc = StorageService.open(cfg)
     prim: dict = {}
-    with timed_calls(prim, svc.store.backend, PRIMITIVES), \
+    shapes: dict = {}
+    with lookup_shapes(shapes, svc.store.backend), \
+            timed_calls(prim, svc.store.backend, PRIMITIVES), \
             timed_calls(prim, svc.store.device_pool, POOL_CALLS):
-        return _drive(svc, prim, rng, n_keys=n_keys, batch=batch,
-                      n_mixed=n_mixed, gets=gets, puts=puts, deletes=deletes,
-                      scans=scans, n_tail=n_tail,
-                      profile_submits=profile_submits)
+        out = _drive(svc, prim, rng, n_keys=n_keys, batch=batch,
+                     n_mixed=n_mixed, gets=gets, puts=puts, deletes=deletes,
+                     scans=scans, n_tail=n_tail,
+                     profile_submits=profile_submits)
+    out["lookup_shapes"] = shape_summary(shapes)
+    return out
 
 
 def _check_get(g, live, val, ids, what):
@@ -1798,11 +2017,13 @@ def main() -> int:
                               (131072, 1 << 20), (1 << 20, 1 << 20)],
         ingest_n=4096, sst_keys=2048, n_queries=4096,
         lookup_kw={"tier_tables": 512, "table_keys": 2048,
-                   "store_sizes": [4, 4, 8, 32, 96, 368]})
+                   "store_sizes": [4, 4, 8, 32, 96, 368],
+                   "pool_shapes": POOL_LOOKUPS})
     torch.cuda.synchronize()
     timing = time_kernels(checked["timed"])
     emit({"phase": "kernels", "card": card, "max_abs_err": checked["err"],
           "view_bytes": checked["view_bytes"], "k1_cases": checked["k1_cases"],
+          "lookup_cases": checked["lookup_cases"],
           "timing": timing})
     emit({"phase": "host_split", "card": card, "ns": host_split(
         checked["timed"])})
@@ -1865,6 +2086,12 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the pool path: "
                              f"{missing}")
+    for k in ("probe_store", "probe_tier"):
+        if pooled["launches"][k] != \
+                pooled["lookup_shapes"][k]["launching_calls"]:
+            raise AssertionError(f"{k} launched {pooled['launches'][k]} "
+                                 f"times, not once per call: "
+                                 f"{pooled['lookup_shapes'][k]}")
     if not pooled["tail"]["pool"]["store_hits"] > \
             pooled["mixed"]["pool"]["store_hits"]:
         raise AssertionError("the read-only tail was never served by the "

@@ -54,8 +54,8 @@ class TierView:
 
     The host-side metadata is backend-independent; ``payload`` carries the
     backend's resident representation of the tier's key/val/Bloom pages
-    (the torch backend's device tensors, ``kernels.lookup.VIEW_FIELDS``
-    -- the part a ``DevicePagePool`` keeps device-resident).
+    (the torch backend's ``kernels.lookup.View`` -- the part a
+    ``DevicePagePool`` keeps device-resident).
     """
 
     backend: str
@@ -149,8 +149,8 @@ class StoreLookup:
 def assign_bounds(starts, ends, qkeys):
     """Array-level twin of ``sstable.assign_queries``: map each query to
     the covering table of a disjoint, min_key-sorted tier described by its
-    bound arrays. The fused paths use it so assignment is bit-identical to
-    the staged probe."""
+    bound arrays. The fused kernels (``kernels.lookup``) compute exactly
+    this on the device; the tests and ``chip_smoke.py`` hold them to it."""
     ti = np.searchsorted(starts, qkeys, side="right") - 1
     ok = ti >= 0
     ti = np.clip(ti, 0, len(starts) - 1)

@@ -30,8 +30,8 @@ from ...kernels.bloom import bloom as bloom_k
 from ...kernels.lookup import lookup as lookup_k
 from ...kernels.merge import merge as merge_k
 from .backend import (BLOOM_K_HASHES, ExecutionBackend, FusedLookup,
-                      StoreLookup, StoreView, TierView, assign_bounds,
-                      bloom_sizing, register_backend)
+                      StoreLookup, StoreView, TierView, bloom_sizing,
+                      register_backend)
 from .numpy_backend import ingest_order
 
 KERNELS = tuple(LAUNCHES)
@@ -142,24 +142,24 @@ class TorchBackend(ExecutionBackend):
         return pos.cpu().numpy(), found.cpu().numpy()
 
     # -- fused read path over device-resident views --------------------------
-    def _view_payload(self, tables, lens, bloom_fn) -> dict:
-        """Device tensors of a view over ``tables`` (tier-major for a
-        store): the key and value runs concatenated, the filters as one
-        flat bool concatenation (``torch.cat`` of the device-resident
-        filters), and per table its slot offset, slot count, run offset
-        and run length ``lens`` (``kernels.lookup.VIEW_FIELDS``). One
-        host-to-device copy per array, the per-table ones in one."""
+    def _view_payload(self, tables, lens, t_off, bloom_fn):
+        """The ``lookup.View`` over ``tables`` (tier-major for a store;
+        ``t_off`` [R + 1] each tier's first table, then T): the key and
+        value runs concatenated, the filters as one flat bool concatenation
+        (``torch.cat`` of the device-resident filters), and per table its
+        slot offset, slot count, run offset, run length, min_key and
+        max_key (``lookup.META_ROWS``). One host-to-device copy per run
+        array, the per-table ones and ``t_off`` in one."""
         filts = [self._filter(bloom_fn(t)).reshape(-1) for t in tables]
         nslots = np.array([f.numel() for f in filts], np.int64)
-        meta = self._to(np.stack([np.cumsum(nslots) - nslots, nslots,
-                                  np.cumsum(lens) - lens, lens]))
-        return {
-            "keys": self._to(np.concatenate([t.keys for t in tables])),
-            "vals": self._to(np.concatenate([t.vals for t in tables])),
-            "fbits": torch.cat(filts),
-            "f_offs": meta[0], "nslots": meta[1],
-            "offs": meta[2], "lens": meta[3],
-        }
+        meta = np.stack([np.cumsum(nslots) - nslots, nslots,
+                         np.cumsum(lens) - lens, lens,
+                         [t.min_key for t in tables],
+                         [t.max_key for t in tables]])
+        return lookup_k.View(
+            self._to(np.concatenate([t.keys for t in tables])),
+            self._to(np.concatenate([t.vals for t in tables])),
+            torch.cat(filts), meta, t_off)
 
     def prepare_tier(self, tables, bloom_fn):
         lens = np.array([t.num_entries for t in tables], np.int64)
@@ -169,19 +169,20 @@ class TorchBackend(ExecutionBackend):
             starts=np.array([t.min_key for t in tables], np.int64),
             ends=np.array([t.max_key for t in tables], np.int64),
             offs=np.cumsum(lens) - lens, lens=lens,
-            payload=self._view_payload(tables, lens, bloom_fn))
+            payload=self._view_payload(tables, lens, [0, len(tables)],
+                                       bloom_fn))
 
     def lookup_fused(self, view, queries):
-        """K4: one launch for the whole tier. Assignment stays on the
-        host (``assign_bounds``); queries and assigned tables go to the
-        card in one copy, and the four fields come back in one."""
-        q = np.asarray(queries, np.int64)
-        ti, ok = assign_bounds(view.starts, view.ends, q)
-        qt = self._to(np.stack([q, ti]))
-        out = lookup_k.probe_tier(view.payload, qt[0], qt[1],
-                                  self.k_hashes).cpu().numpy()
-        return FusedLookup(ti=ti, ok=ok, positive=out[0].astype(bool),
-                           pos=out[1], hit=out[2].astype(bool), vals=out[3])
+        """K4: one launch for the whole tier, assignment included; the
+        queries go to the card in one copy and the fields come back in
+        one (``lookup.probe_host``). ``pos`` and ``ti`` come back as
+        int32 and are widened here."""
+        f = lookup_k.probe_host(view.payload, np.asarray(queries, np.int64),
+                                self.k_hashes, self._staging, store=False)
+        return FusedLookup(ti=f["ti"][0].astype(np.int64), ok=f["ok"][0],
+                           positive=f["positive"][0],
+                           pos=f["pos"][0].astype(np.int64),
+                           hit=f["hit"][0], vals=f["vals"][0])
 
     def prepare_store(self, tiers, bloom_fn):
         tables = [t for tier in tiers for t in tier]
@@ -191,8 +192,9 @@ class TorchBackend(ExecutionBackend):
         offs = np.cumsum(lens) - lens
         payload = None
         if tables:
-            payload = self._view_payload(tables, lens, bloom_fn)
-            payload["t_off"] = self._to(t_off)
+            payload = self._view_payload(tables, lens,
+                                         np.append(t_off, len(tables)),
+                                         bloom_fn)
         return StoreView(
             backend=self.name,
             key=tuple(tuple(t.sst_id for t in tier) for tier in tiers),
@@ -207,9 +209,10 @@ class TorchBackend(ExecutionBackend):
             payload=payload)
 
     def lookup_store_fused(self, view, queries):
-        """K3: one launch for every tier of the store, newest-wins
-        winner included. ``R == 0`` returns the empty lookup without a
-        launch."""
+        """K3: one launch for every tier of the store, assignment and
+        newest-wins winner included, one copy in and one back
+        (``lookup.probe_host``). ``R == 0`` returns the empty lookup
+        without a launch."""
         q = np.asarray(queries, np.int64)
         R, K = view.num_tiers, len(q)
         if R == 0:
@@ -219,18 +222,12 @@ class TorchBackend(ExecutionBackend):
                 pos=np.zeros((0, K), np.int64), hit=np.zeros((0, K), bool),
                 vals=np.zeros((0, K), np.int64),
                 win=np.full(K, -1, np.int64))
-        ti = np.empty((R, K), np.int64)
-        ok = np.empty((R, K), bool)
-        for r in range(R):
-            ti[r], ok[r] = assign_bounds(view.tier_starts[r],
-                                         view.tier_ends[r], q)
-        qt = self._to(np.concatenate([q[None], ti]))
-        p = view.payload
-        out = lookup_k.probe_store(p, p["t_off"], qt[0], qt[1:],
-                                   self.k_hashes).cpu().numpy()
-        return StoreLookup(ti=ti, ok=ok, positive=out[:R].astype(bool),
-                           pos=out[R:2 * R], hit=out[2 * R:3 * R].astype(bool),
-                           vals=out[3 * R:4 * R], win=out[4 * R])
+        f = lookup_k.probe_host(view.payload, q, self.k_hashes,
+                                self._staging, store=True)
+        return StoreLookup(ti=f["ti"].astype(np.int64), ok=f["ok"],
+                           positive=f["positive"],
+                           pos=f["pos"].astype(np.int64), hit=f["hit"],
+                           vals=f["vals"], win=f["win"].astype(np.int64))
 
 
 register_backend("torch", TorchBackend)

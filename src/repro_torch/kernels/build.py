@@ -32,8 +32,9 @@ SIGNATURES = {
     "bloom_build": [_P, _I64, _I32, _INT, _P, _P],
     "bloom_probe": [_P, _I32, _INT, _P, _I64, _P, _P],
     "bloom_probe_tier": [_P, _I64, _INT, _P, _P, _I64, _P, _P],
-    "probe_tier": [_P] * 7 + [_INT, _P, _P, _I64, _P, _P],
-    "probe_store": [_P] * 8 + [_I64, _INT, _P, _P, _I64, _P, _P],
+    "probe_tier": [_P, _INT, _P, _I64, _P, _P, _P, _P],
+    "probe_store": [_P, _INT, _P, _I64, _P, _P, _P, _P],
+    "probe_floor": [_P, _I64, _P],
     "flash_attention": [_P] * 4 + [_I64] * 18 + [_INT, _INT, _F32, _F32,
                                                  _INT, _P],
 }

@@ -178,12 +178,16 @@ def compact(out, n: int):
 class Staging:
     """One grow-only int64 host buffer for the engine's calls on
     ``device``, pinned when that is a GPU (pinned allocations cost far
-    more than they save when made per call), and its numpy view."""
+    more than they save when made per call), and its numpy view; and one
+    grow-only int64 buffer on ``device`` for calls that copy in and back
+    themselves (``lookup.probe_host``)."""
 
     def __init__(self, device):
-        self.pin = torch.device(device).type == "cuda"
+        self.device = torch.device(device)
+        self.pin = self.device.type == "cuda"
         self.buf = torch.empty(0, dtype=torch.int64)
         self.host = self.buf.numpy()
+        self.dev = None
 
     def take(self, words: int):
         """The whole buffer, at least ``words`` long: (tensor, numpy)."""
@@ -193,6 +197,15 @@ class Staging:
                                    pin_memory=self.pin)
             self.host = self.buf.numpy()
         return self.buf, self.host
+
+    def take_device(self, words: int):
+        """The whole device buffer, at least ``words`` long."""
+        if self.dev is None or words > len(self.dev):
+            size = max(words, 0 if self.dev is None else 2 * len(self.dev),
+                       1 << 16)
+            self.dev = torch.empty(size, dtype=torch.int64,
+                                   device=self.device)
+        return self.dev
 
 
 def merge_runs_host(runs, device, staging: Staging):

@@ -28,7 +28,6 @@ from repro.core.lsm.sstable import reset_sst_ids as ref_reset  # noqa: E402
 from repro.core.service.governor import (  # noqa: E402
     DevicePoolGovernor as RefPoolGovernor)
 from repro_torch.core.durability.wal import encode_record as port_encode  # noqa: E402
-from repro_torch.core.engine.backend import assign_bounds  # noqa: E402
 from repro_torch.core.engine.torch_backend import TorchBackend  # noqa: E402
 from repro_torch.core.lsm.sstable import partition_run as port_partition  # noqa: E402
 from repro_torch.core.lsm.sstable import reset_sst_ids as port_reset  # noqa: E402
@@ -201,19 +200,33 @@ def _np_payload(keys, vals, lens, nslots, fbits):
         "f_offs": np.cumsum(nslots) - nslots, "nslots": nslots}
 
 
-def _torch_view(p, offs, lens):
+def _torch_view(p, offs, lens, starts, ends, t_off):
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
-    return {"keys": T(p["keys"]), "vals": T(p["vals"]),
-            "fbits": T(p["fbits"]), "f_offs": T(p["f_offs"]),
-            "nslots": T(p["nslots"]), "offs": T(offs), "lens": T(lens)}
+    return lookup_k.View(T(p["keys"]), T(p["vals"]), T(p["fbits"]),
+                         [p["f_offs"], p["nslots"], offs, lens, starts,
+                          ends], t_off)
+
+
+def _assert_lookup(got: dict, want, store: bool):
+    """The plain version's fields, widened, against a reference lookup."""
+    for f in ("positive", "hit", "ok", "pos", "ti", "vals"):
+        g = got[f]
+        if not store:
+            g = g[0]
+        np.testing.assert_array_equal(g.numpy().astype(getattr(want,
+                                                               f).dtype),
+                                      getattr(want, f), err_msg=f)
+    if store:
+        np.testing.assert_array_equal(got["win"].numpy(), want.win)
 
 
 @settings(database=None, max_examples=40, deadline=None)
 @given(st.data(), st.integers(0, 2**32 - 1), st.integers(1, 4))
 def test_property_plain_versions_match_numpy_math(data, seed, n_tiers):
     """``probe_tier_plain``/``probe_store_plain`` against the numpy
-    backend's fused math: per-query slot counts, ragged tables, keys over
-    the whole int64 range, tiers that overlap each other."""
+    backend's fused math, assignment included: per-query slot counts,
+    ragged tables, keys over the whole int64 range, tiers that overlap
+    each other."""
     rng = np.random.default_rng(seed)
     nb = NumpyBackend()
     tiers = [_random_tier(data, rng, -2**40, 2**40) for _ in range(n_tiers)]
@@ -226,13 +239,9 @@ def test_property_plain_versions_match_numpy_math(data, seed, n_tiers):
                                                 fbits)
         want = nb.lookup_fused(RefTierView("numpy", tuple(range(len(ln))),
                                            starts, ends, offs, ln, p), q)
-        ti, _ = assign_bounds(starts, ends, q)
-        got = lookup_k.probe_tier_plain(_torch_view(p, offs, ln), qt,
-                                        torch.from_numpy(ti), K_HASHES)
-        for row, f in enumerate(("positive", "pos", "hit", "vals")):
-            np.testing.assert_array_equal(
-                got[row].numpy(), getattr(want, f).astype(np.int64),
-                err_msg=f)
+        view = _torch_view(p, offs, ln, starts, ends, [0, len(ln)])
+        got = lookup_k.probe_tier_plain(view, qt, K_HASHES)
+        _assert_lookup(lookup_k.unpack(got, 1, len(q), False), want, False)
     # The same tiers stacked tier-major into one store view.
     cat = [_np_payload(*t) for t in tiers]
     counts = np.array([len(c[3]) for c in cat], np.int64)
@@ -253,36 +262,32 @@ def test_property_plain_versions_match_numpy_math(data, seed, n_tiers):
         tuple(offs[t_off[r]:t_off[r] + counts[r]] for r in range(n_tiers)),
         tuple(c[3] for c in cat), p)
     want = nb.lookup_store_fused(sview, q)
-    got = lookup_k.probe_store_plain(_torch_view(p, offs, lens),
-                                     torch.from_numpy(t_off), qt,
-                                     torch.from_numpy(want.ti), K_HASHES)
-    R = n_tiers
-    for row, f in enumerate(("positive", "pos", "hit", "vals")):
-        np.testing.assert_array_equal(
-            got[row * R:(row + 1) * R].numpy(),
-            getattr(want, f).astype(np.int64), err_msg=f)
-    np.testing.assert_array_equal(got[4 * R].numpy(), want.win)
+    view = _torch_view(p, offs, lens, np.concatenate([c[0] for c in cat]),
+                       np.concatenate([c[1] for c in cat]),
+                       np.append(t_off, len(lens)))
+    got = lookup_k.probe_store_plain(view, qt, K_HASHES)
+    _assert_lookup(lookup_k.unpack(got, n_tiers, len(q), True), want, True)
 
 
 def test_lookup_wrappers_take_the_plain_version_only_on_cpu(backends):
     tb = backends[0]
     pt, _ = make_tier(np.random.default_rng(3), 2)
     view = tb.prepare_tier(pt, bloom_of(tb)).payload
+    store = tb.prepare_store([pt, pt[:1]], bloom_of(tb)).payload
     q = torch.arange(10, dtype=torch.int64)
-    ti = torch.zeros(10, dtype=torch.int64)
     before = dict(LAUNCHES)
-    lookup_k.probe_tier(view, q, ti, K_HASHES)
-    lookup_k.probe_store(view, torch.zeros(1, dtype=torch.int64), q,
-                         ti[None], K_HASHES)
+    lookup_k.probe_tier(view, q, K_HASHES)
+    lookup_k.probe_store(store, q, K_HASHES)
     assert LAUNCHES == before
     with pytest.raises(ValueError, match="int64"):
-        lookup_k.probe_tier(view, q.int(), ti, K_HASHES)
-    with pytest.raises(ValueError, match="does not match"):
-        lookup_k.probe_store(view, torch.zeros(2, dtype=torch.int64), q,
-                             ti[None], K_HASHES)
-    m = {k: v.to("meta") for k, v in view.items()}
+        lookup_k.probe_tier(view, q.int(), K_HASHES)
+    with pytest.raises(ValueError, match="one-tier view"):
+        lookup_k.probe_tier(store, q, K_HASHES)
     with pytest.raises(ValueError, match="no kernel for device"):
-        lookup_k.probe_tier(m, q.to("meta"), ti.to("meta"), K_HASHES)
+        lookup_k.View(view.keys.to("meta"), view.vals.to("meta"),
+                      view.fbits.to("meta"),
+                      [getattr(view, n).numpy() for n in lookup_k.META_ROWS],
+                      [0, view.n_tables])
 
 
 # --------------------------- (c) store and service vs the reference ---------
