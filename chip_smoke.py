@@ -58,14 +58,40 @@
    one-launch store path. (K5 does not run here:
    a store-view miss admits every page of the tree before the per-tier
    loop.)
-5. Card-vs-CPU phase: one seeded stream of about 60k operations on a small
+5. Adaptive phase: the staged phase's store and stream (2**20 keys, 256
+   YCSB-A submits) over a ``ShardedStore`` of 4 hash-routed shards under
+   ``AdaptiveGovernor(TunerConfig())``, the §5 memory tuner moving the
+   write-memory/buffer-cache boundary of the one shared arena. Every Get
+   and Scan against the dict oracle; K1, K2 and K5 must launch, K1 at most
+   once per engine merge call; the tuner must run at least one cycle.
+   Prints its trajectory (x, x_next in MiB, stop reason, cost'), the plans
+   applied, the host time per tuning cycle, the keys on each shard, and
+   the mixed part's submits per second beside the staged phase's.
+6. Arbiter phase: ``HBMArbiter`` leasing one 2 GiB budget across the pool
+   phase's store (2**20 keys, store-scope fused reads, a device pool of
+   256 MiB at first) and a Yi-6B ``PagedKVPool`` (1 MiB pages of 16
+   tokens) with its prefix cache, a decision every 2,048 operations:
+   phase A, 32 read-only submits of 4096 zipfian Gets; phase B, 16,384
+   one-page appends over 16 streams with a 32-Get submit every 64. Every
+   Get against the oracle; the leases sum to 2 GiB byte for byte after
+   every decision, the pool's budget ends at the device lease, some bytes
+   must move, and K3 and K4 must launch exactly once per backend call
+   with queries. Prints the lease trajectory and the device lease's
+   change over each phase.
+7. Card-vs-CPU phase: one seeded stream of about 60k operations on a small
    store with a 192 KB log cap, replayed with device="cuda" and
    device="cpu", with the pool off, then on (32 MB) in each fused scope:
    fingerprint, every result, IOStats, the WAL bytes and the pool's
    counters must be identical, every replay must run log-triggered
    flushes, and the card's replays must launch the kernels of their path
-   (K5 with the pool on: the tier-scope replay's cold tiers).
-6. Serve phase: ``repro_torch.launch.serve.main`` at Yi-6B's full width
+   (K5 with the pool on: the tier-scope replay's cold tiers). Then the
+   same stream under the tuner (``REPLAY_TUNER``,
+   ``examples/multi_tenant_store.py``'s settings) over a ``ShardedStore``
+   of 1 shard and of 4 shards: every ``TuneRecord`` must
+   be identical too, the tuner must actuate at least twice, and the card
+   must launch K1, K2 and K5 (``"phase": "adaptive_replay"``). The three
+   new phases' seconds follow (``"new_phase_seconds"``).
+8. Serve phase: ``repro_torch.launch.serve.main`` at Yi-6B's full width
    (32 layers, f32 params, bf16 compute, random weights from seed 0) with
    the reference's defaults: 64 requests in batches of 4, 48 prompt
    tokens, 16 generated. K6 must launch exactly 32 x 17 x 16 = 8,704
@@ -73,7 +99,7 @@
    tokens/s (CUDA events only, no profiler attached), memory, the pool's
    stats, the governor's records and the entry point's lines. A second,
    short run (8 requests) is profiled over 5 decode steps.
-7. Card-vs-CPU model phase: Yi-6B at full width but 2 layers, batch 4,
+9. Card-vs-CPU model phase: Yi-6B at full width but 2 layers, batch 4,
    prompt 48, 8 decode steps, the same seeded weights on the card and on
    the CPU, in f32 and bf16 compute: the largest and the RMS logits
    difference within ``MODEL_TOL`` at every step, greedy tokens equal
@@ -104,8 +130,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.core import (Delete, Get, Put, Scan,  # noqa: E402
-                              StorageService, StoreConfig)
+from repro_torch.core import (AdaptiveGovernor, Delete, Get,  # noqa: E402
+                              LSMStore, Put, Scan, ShardedStore,
+                              StorageService, StoreConfig, TunerConfig)
 from repro_torch.core.durability.wal import encode_record  # noqa: E402
 from repro_torch.core.engine.backend import (  # noqa: E402
     assign_bounds, bloom_sizing)
@@ -127,7 +154,10 @@ from repro_torch.models import attention as port_attention  # noqa: E402
 from repro_torch.models import build_model, init_params  # noqa: E402
 from repro_torch.models.params import leaves, tree_map  # noqa: E402
 from repro_torch.models.transformer import CausalLM  # noqa: E402
+from repro_torch.runtime.hbm_arbiter import (  # noqa: E402
+    HBMArbiter, HBMArbiterConfig)
 from repro_torch.runtime.hbm_tuner import HBMGovernor  # noqa: E402
+from repro_torch.runtime.kvcache import KVPoolConfig, PagedKVPool  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 OPS_PER_S = 67e12                # H100 SXM peak outside the tensor cores
@@ -181,6 +211,35 @@ POOL_BYTES = 2 << 30
 # and timed beside the timed shapes: name -> (tables a tier, queries).
 POOL_LOOKUPS = {"probe_tier_pool": ([75], 560),
                 "probe_store_pool": ([50, 462], 560)}
+# The adaptive phase: the staged phase's store and stream over a
+# ShardedStore of this many hash-routed shards, under the §5 tuner with
+# TunerConfig's defaults.
+ADAPTIVE_SHARDS = 4
+# The card-vs-CPU replay of the tuner: examples/multi_tenant_store.py's
+# tuner settings over ShardedStores of 1 and 4 shards.
+REPLAY_TUNER = dict(min_step_bytes=256 << 10, ops_cycle=15_000,
+                    min_write_mem=1 * MB, min_rel_gain=0.0002)
+REPLAY_SHARDS = (1, 4)
+# Its store: the replay's geometry with a buffer cache smaller than the
+# data (40,000 keys of 256 B) and the log cap above the bytes the stream
+# writes, so reads miss, merges run and flushes are memory-triggered:
+# cost'(x) is nonzero and the tuner moves.
+REPLAY_TUNED_STORE = dict(total_memory_bytes=10 * MB,
+                          write_memory_bytes=2 * MB, max_log_bytes=64 * MB)
+REPLAY_TUNED_KEYS = 40_000
+# The arbiter phase: one 2 GiB device budget leased across the store's
+# device page pool (256 MiB at first) and a Yi-6B KV pool and prefix
+# cache (the rest, split evenly); a KV page is 16 tokens of Yi-6B's keys
+# and values in bf16 (1 MiB). Phase A: 32 read-only submits of 4096
+# zipfian Gets; phase B: ARBITER_APPENDS one-page appends over 16
+# streams, a 32-Get batch every 64 appends (benchmarks/kv_serving.py's
+# arbiter_flip shape).
+ARBITER_DEVICE_LEASE = 256 << 20
+ARBITER_OPS_CYCLE = 2048
+ARBITER_APPENDS = 16384
+ARBITER_STREAMS = 16
+# The service phases' two trees; the first takes 90% of the writes.
+TREES = ("hot", "cold")
 
 
 def emit(obj) -> None:
@@ -1243,31 +1302,74 @@ def _part(before: dict, after: dict) -> dict:
             "pool": after["pool"], "view_bytes": after["view_bytes"]}
 
 
+def _stores(store) -> list:
+    """The LSMStores of a store: its shards', or itself."""
+    return [sh.store for sh in store.shards] if hasattr(store, "shards") \
+        else [store]
+
+
 def run_service(dev, *, n_keys: int, batch: int, n_mixed: int, gets: int,
                 puts: int, deletes: int, scans: int, n_tail: int = 0,
-                cfg_kw=None, profile_submits: int = 0, seed: int = 0) -> dict:
+                cfg_kw=None, profile_submits: int = 0, seed: int = 0,
+                shards: int | None = None, governor=None,
+                on_part=None) -> dict:
     """Load ``n_keys`` distinct keys, run ``n_mixed`` mixed submits, then
     ``n_tail`` read-only submits of ``2 * gets`` zipfian Gets; every Get
-    and Scan is held against a dict oracle. Returns counts, wall times, a
-    digest of every Get and Scan result of the mixed part, and the
-    store's counters at the end of each part. The first
+    and Scan is held against a dict oracle. ``shards`` puts a
+    ``ShardedStore`` of that many hash-routed shards under the service,
+    and ``governor`` replaces its default governor. ``on_part(part, svc,
+    oracle)`` is called at the end of the load, the mixed part and the
+    tail, with the kernels still counted (``oracle``: ``_Oracle``). Returns counts, wall
+    times, a digest of every Get and Scan result of the mixed part, and
+    the store's counters at the end of each part. The first
     ``profile_submits`` submits of the mixed part and of the tail (CUDA
     only) run under the profiler, which gives the device's busy share."""
     rng = np.random.default_rng(seed)
     cfg = StoreConfig(scheme="partitioned", flush_policy="opt", device=dev,
                       **(cfg_kw or {}))
-    svc = StorageService.open(cfg)
+    store = ShardedStore(cfg, shards=shards) if shards else LSMStore(cfg)
+    svc = StorageService(store, governor=governor)
+    backend = _stores(store)[0].backend      # one backend per device
     prim: dict = {}
     shapes: dict = {}
-    with lookup_shapes(shapes, svc.store.backend), \
-            timed_calls(prim, svc.store.backend, PRIMITIVES), \
-            timed_calls(prim, svc.store.device_pool, POOL_CALLS):
+    tuned: dict = {}
+    controller = getattr(svc.governor, "controller", None)
+    with lookup_shapes(shapes, backend), \
+            timed_calls(prim, backend, PRIMITIVES), \
+            timed_calls(prim, store.device_pool, POOL_CALLS), \
+            (timed_calls(tuned, controller, ("tune_now",))
+             if controller is not None else contextlib.nullcontext()):
         out = _drive(svc, prim, rng, n_keys=n_keys, batch=batch,
                      n_mixed=n_mixed, gets=gets, puts=puts, deletes=deletes,
                      scans=scans, n_tail=n_tail,
-                     profile_submits=profile_submits)
+                     profile_submits=profile_submits, on_part=on_part)
     out["lookup_shapes"] = shape_summary(shapes)
+    if controller is not None:
+        out["tuner"] = tuner_report(svc, tuned["tune_now"])
+    if shards:
+        out["shard_tree_stats"] = store.shard_tree_stats()
     return out
+
+
+def tuner_report(svc, tune_now) -> dict:
+    """The tuner's cycles: the trajectory of every record (x and x_next in
+    MiB, the stop reason, cost'), the plans the service applied, and the host
+    seconds of the tuning cycles (``tune_now``: statistics, derivatives,
+    the Newton step and its actuation)."""
+    recs = svc.governor.records
+    stops: dict = {}
+    for r in recs:
+        stops[r.stopped or "step"] = stops.get(r.stopped or "step", 0) + 1
+    return {"cycles": len(recs),
+            "moves": sum(r.x_next != r.x for r in recs),
+            "stops": stops,
+            "trajectory": [[r.x / MB, r.x_next / MB, r.stopped or "step",
+                            r.cost_prime] for r in recs],
+            "plans": [[p.write_memory_bytes, p.note] for p in svc.plans],
+            "write_memory_bytes": svc.store.write_memory_bytes,
+            "tune_calls": tune_now[0], "tune_s": tune_now[1],
+            "tune_ms_per_cycle": (1e3 * tune_now[1] / tune_now[0]
+                                  if tune_now[0] else None)}
 
 
 def _check_get(g, live, val, ids, what):
@@ -1282,9 +1384,24 @@ def _check_get(g, live, val, ids, what):
             f"{val[ids[i]].tolist()}")
 
 
+class _Oracle:
+    """The dict oracle of a service run: per tree the loaded ids, each id's
+    value and liveness, and the tree's zipfian id sampler."""
+
+    def __init__(self, ids, val, live, zipf):
+        self.ids, self.val, self.live, self.zipf = ids, val, live, zipf
+
+    def get(self, svc, tree, n: int, what: str) -> None:
+        """One submit of ``n`` zipfian Gets on ``tree``, held to the
+        oracle."""
+        g_ids = self.ids[tree][self.zipf[tree](n)]
+        g = svc.submit_strict([Get(tree, _key_of(g_ids))])[0]
+        _check_get(g, self.live[tree], self.val[tree], g_ids, what)
+
+
 def _drive(svc, prim, rng, *, n_keys, batch, n_mixed, gets, puts, deletes,
-           scans, n_tail, profile_submits):
-    trees = ("hot", "cold")
+           scans, n_tail, profile_submits, on_part=None):
+    trees = TREES
     for t in trees:
         svc.create_tree(t)
     ids = {t: [] for t in trees}
@@ -1306,6 +1423,9 @@ def _drive(svc, prim, rng, *, n_keys, batch, n_mixed, gets, puts, deletes,
     checked = 0
     digest = hashlib.sha256()
     at_load = _state(svc, prim)
+    oracle = _Oracle(ids, val, live, zipf)
+    if on_part is not None:
+        on_part("load", svc, oracle)
     win = _Window(svc, profile_submits)
     t0 = time.perf_counter()
     for si in range(n_mixed):
@@ -1342,6 +1462,8 @@ def _drive(svc, prim, rng, *, n_keys, batch, n_mixed, gets, puts, deletes,
         checked += gets + scans
     mixed_s = time.perf_counter() - t0
     at_mixed = _state(svc, prim)
+    if on_part is not None:
+        on_part("mixed", svc, oracle)
     tail = _Window(svc, profile_submits if n_tail else 0)
     t0 = time.perf_counter()
     for si in range(n_tail):
@@ -1352,8 +1474,10 @@ def _drive(svc, prim, rng, *, n_keys, batch, n_mixed, gets, puts, deletes,
         checked += 2 * gets
     tail_s = time.perf_counter() - t0
     at_tail = _state(svc, prim)
+    if on_part is not None:
+        on_part("tail", svc, oracle)
     st = svc.stats
-    tr = svc.store.trees
+    stores = _stores(svc.store)
     out = {"load_s": load_s, "mixed_wall_s": mixed_s,
            "mixed": {**win.report(), **_part(at_load, at_mixed),
                      "digest": digest.hexdigest(),
@@ -1363,11 +1487,19 @@ def _drive(svc, prim, rng, *, n_keys, batch, n_mixed, gets, puts, deletes,
            "flushes_mem": st.flushes_mem, "flushes_log": st.flushes_log,
            "pages_flushed": st.pages_flushed,
            "pages_merge_written": st.pages_merge_written,
-           "disk_levels": {t: tr[t].levels.num_levels for t in trees},
-           "disk_tables": {t: sum(len(x) for x in tr[t].l0.lookup_tiers()
-                                  + tr[t].levels.lookup_tiers())
+           "disk_levels": {t: max(s.trees[t].levels.num_levels
+                                  for s in stores) for t in trees},
+           "disk_tables": {t: sum(len(x) for s in stores
+                                  for x in s.trees[t].l0.lookup_tiers()
+                                  + s.trees[t].levels.lookup_tiers())
                            for t in trees},
            "write_stalls": st.write_stalls}
+    router = getattr(svc.store, "router", None)
+    if router is not None:
+        out["shard_keys"] = np.bincount(
+            router.shard_of_batch(np.concatenate(
+                [_key_of(np.flatnonzero(live[t])) for t in trees])),
+            minlength=router.n_shards).tolist()
     out["primitives_total"] = at_tail["primitives"]
     if n_tail:
         out["tail_wall_s"] = tail_s
@@ -1406,13 +1538,13 @@ def same_as_staged(staged: dict, pooled: dict) -> None:
 # --------------------------- card-vs-CPU replay ------------------------------
 def small_config(dev, **kw) -> StoreConfig:
     """The differential suite's small store, with a log cap small enough
-    that log-triggered flushes run."""
-    return StoreConfig(
-        total_memory_bytes=32 * MB, write_memory_bytes=256 * KB,
-        sim_cache_bytes=1 * MB, page_bytes=4 * KB, entry_bytes=256,
-        active_sstable_bytes=32 * KB, sstable_bytes=64 * KB,
-        max_log_bytes=REPLAY_MAX_LOG_BYTES, scheme="partitioned",
-        flush_policy="lsn", device=dev, **kw)
+    that log-triggered flushes run; ``kw`` overrides any field."""
+    return StoreConfig(**{
+        "total_memory_bytes": 32 * MB, "write_memory_bytes": 256 * KB,
+        "sim_cache_bytes": 1 * MB, "page_bytes": 4 * KB, "entry_bytes": 256,
+        "active_sstable_bytes": 32 * KB, "sstable_bytes": 64 * KB,
+        "max_log_bytes": REPLAY_MAX_LOG_BYTES, "scheme": "partitioned",
+        "flush_policy": "lsn", "device": dev, **kw})
 
 
 def _sst_bits(s):
@@ -1434,21 +1566,28 @@ def fingerprint(store) -> dict:
     return out
 
 
-def replay(dev, *, n_submits: int, seed: int = 1, **cfg_kw):
-    """One seeded op stream through a small store on ``dev``."""
+def replay(dev, *, n_submits: int, seed: int = 1, shards=None, tuner=None,
+           keys: int = 4000, **cfg_kw):
+    """One seeded op stream over ``keys`` keys through a small store on
+    ``dev``: an ``LSMStore``, or a ``ShardedStore`` of ``shards``
+    hash-routed shards; with ``tuner`` (``TunerConfig`` fields) under an
+    ``AdaptiveGovernor``."""
     reset_sst_ids()
-    svc = StorageService.open(small_config(dev, **cfg_kw))
+    cfg = small_config(dev, **cfg_kw)
+    gov = AdaptiveGovernor(TunerConfig(**tuner)) if tuner else None
+    svc = StorageService(ShardedStore(cfg, shards=shards) if shards
+                         else LSMStore(cfg), governor=gov)
     for t in ("a", "b"):
         svc.create_tree(t)
     rng = np.random.default_rng(seed)
     outs, n_ops = [], 0
     for _ in range(n_submits):
         tree = "a" if rng.random() < 0.7 else "b"
-        pk = rng.integers(0, 4000, 200)
-        reqs = [Get(tree, rng.integers(0, 4000, 100)),
-                Scan(tree, int(rng.integers(0, 4000)), 200),
+        pk = rng.integers(0, keys, 200)
+        reqs = [Get(tree, rng.integers(0, keys, 100)),
+                Scan(tree, int(rng.integers(0, keys)), 200),
                 Put(tree, pk, rng.integers(0, 2**40, 200)),
-                Delete(tree, rng.integers(0, 4000, 20))]
+                Delete(tree, rng.integers(0, keys, 20))]
         for r in svc.submit_strict(reqs):
             if hasattr(r, "found"):
                 outs.append(("get", r.found.tobytes(), r.vals.tobytes()))
@@ -1458,7 +1597,9 @@ def replay(dev, *, n_submits: int, seed: int = 1, **cfg_kw):
                 outs.append((type(r).__name__, r.n))
         n_ops += 100 + 1 + 200 + 20
     st = svc.store
-    return {"fingerprint": fingerprint(st), "outputs": outs,
+    return {"fingerprint": [fingerprint(x) for x in _stores(st)],
+            "outputs": outs,
+            "records": [vars(r) for r in gov.records] if gov else None,
             "iostats": vars(st.disk.stats).copy(),
             "wal": [encode_record(r) for r in st.wal.records()],
             "manifest": [vars(e) for e in st.manifest.edits],
@@ -1468,9 +1609,177 @@ def replay(dev, *, n_submits: int, seed: int = 1, **cfg_kw):
 
 def compare_replays(a: dict, b: dict) -> None:
     for k in ("outputs", "fingerprint", "iostats", "wal", "manifest",
-              "pool"):
+              "pool", "records"):
         if a[k] != b[k]:
             raise AssertionError(f"card and CPU replays differ in {k}")
+
+
+# --------------------------- the §5 tuner and the HBM arbiter ----------------
+def adaptive_phase(card: str, staged: dict, service_kw: dict) -> dict:
+    """The staged phase's store and stream over ``ADAPTIVE_SHARDS``
+    hash-routed shards under ``AdaptiveGovernor(TunerConfig())``: the
+    oracle holds every read, K1, K2 and K5 must launch (K1 at most once
+    per engine merge call), and the tuner must run."""
+    t0 = time.perf_counter()
+    reset_sst_ids()
+    zero_counts()
+    out = run_service("cuda", cfg_kw={"max_log_bytes": SERVICE_MAX_LOG_BYTES},
+                      shards=ADAPTIVE_SHARDS,
+                      governor=AdaptiveGovernor(TunerConfig()), **service_kw)
+    torch.cuda.synchronize()
+    out["launches"] = dict(LAUNCHES)
+    out["wall_s"] = time.perf_counter() - t0
+    out["k1"] = k1_per_call(out)
+    out["submits_per_s"] = {"adaptive": out["mixed"]["submits_per_s"],
+                            "staged": staged["mixed"]["submits_per_s"]}
+    emit({"phase": "adaptive", "card": card, "shards": ADAPTIVE_SHARDS,
+          **out})
+    missing = [k for k in ("merge_pair", "bloom_build", "bloom_probe")
+               if out["launches"][k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched in the adaptive "
+                             f"phase: {missing}")
+    if out["k1"]["launches"] > out["k1"]["calls"]:
+        raise AssertionError(f"K1 launched more than once per merge_runs or "
+                             f"ingest_run call in the adaptive phase: "
+                             f"{out['k1']}")
+    if out["tuner"]["cycles"] < 1:
+        raise AssertionError("the tuner ran no cycle in the adaptive phase")
+    return out
+
+
+def adaptive_replays(n_submits: int) -> list:
+    """One seeded stream through the replay's small store under the tuner
+    (``REPLAY_TUNER``), unsharded and sharded, on the card and on the CPU:
+    every TuneRecord, the stores, results, IOStats and WAL bytes must be
+    identical, the tuner must actuate at least twice, and the card's
+    replay must launch K1, K2 and K5."""
+    out = []
+    for shards in REPLAY_SHARDS:
+        t0 = time.perf_counter()
+        zero_counts()
+        on_card = replay("cuda", n_submits=n_submits, shards=shards,
+                         tuner=REPLAY_TUNER, keys=REPLAY_TUNED_KEYS,
+                         **REPLAY_TUNED_STORE)
+        torch.cuda.synchronize()
+        launched = dict(LAUNCHES)
+        t1 = time.perf_counter()
+        on_cpu = replay("cpu", n_submits=n_submits, shards=shards,
+                        tuner=REPLAY_TUNER, keys=REPLAY_TUNED_KEYS,
+                        **REPLAY_TUNED_STORE)
+        missing = [k for k in ("merge_pair", "bloom_build", "bloom_probe")
+                   if launched[k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels never launched in the tuned "
+                                 f"replay over {shards} shard(s): {missing}")
+        compare_replays(on_card, on_cpu)
+        recs = on_card["records"]
+        moves = sum(r["x_next"] != r["x"] for r in recs)
+        if moves < 2:
+            raise AssertionError(f"the tuned replay over {shards} shard(s) "
+                                 f"actuated {moves} times, not 2 or more")
+        row = {"phase": "adaptive_replay", "shards": shards,
+               "n_ops": on_card["n_ops"], "cycles": len(recs),
+               "moves": moves,
+               "trajectory": [[r["x"] / MB, r["x_next"] / MB,
+                               r["stopped"] or "step"] for r in recs],
+               "flushes_log": [on_card["flushes_log"], on_cpu["flushes_log"]],
+               "wal_records": len(on_card["wal"]), "launches": launched,
+               "card_s": t1 - t0, "cpu_s": time.perf_counter() - t1,
+               "identical": True}
+        emit(row)
+        out.append(row)
+    return out
+
+
+def arbiter_phase(card: str, service_kw: dict) -> dict:
+    """``HBMArbiter`` over the pool phase's store (2**20 keys, store-scope
+    fused reads) and a Yi-6B KV pool, one 2 GiB budget: load, phase A
+    (read-only submits), phase B (KV append churn: one-page appends over
+    ``ARBITER_STREAMS`` streams with a 32-Get submit every 64). Every Get
+    against the oracle; the leases sum to the budget after every decision
+    and the pool's budget follows the device lease; some bytes must move;
+    K3 and K4 must launch exactly once per backend call with queries."""
+    yi = get_config("yi-6b")
+    page = 16 * yi.num_layers * 2 * yi.num_kv_heads * yi.head_dim * 2
+    rest = POOL_BYTES - ARBITER_DEVICE_LEASE
+    leases = {"device": ARBITER_DEVICE_LEASE, "kv": rest // 2,
+              "prefix": rest - rest // 2}
+    kvp = PagedKVPool(KVPoolConfig(
+        page_tokens=16, total_pages=(leases["kv"] + leases["prefix"]) // page,
+        pool_pages=leases["kv"] // page, sim_pages=256))
+    arb = HBMArbiter(kvp, HBMArbiterConfig(
+        total_bytes=POOL_BYTES, kv_page_bytes=page,
+        ops_cycle=ARBITER_OPS_CYCLE), leases=leases)
+    at_end: dict = {}      # part -> (leases, decisions so far)
+    churn: dict = {}
+
+    def on_part(part, svc, oracle):
+        at_end[part] = (dict(arb.leases), len(arb.records))
+        if part != "tail":
+            return
+        t0 = time.perf_counter()
+        for i in range(ARBITER_APPENDS):
+            kvp.append_tokens(f"s{i % ARBITER_STREAMS}", 16)
+            if i % 64 == 0:
+                oracle.get(svc, TREES[0] if (i // 64) % 10 else TREES[1], 32,
+                           f"churn append {i}")
+        churn.update(seconds=time.perf_counter() - t0,
+                     gets=32 * -(-ARBITER_APPENDS // 64),
+                     pool=svc.store.device_pool.stats())
+        at_end["churn"] = (dict(arb.leases), len(arb.records))
+
+    kw = dict(service_kw, n_mixed=0)
+    t0 = time.perf_counter()
+    reset_sst_ids()
+    zero_counts()
+    out = run_service("cuda", cfg_kw={
+        "max_log_bytes": SERVICE_MAX_LOG_BYTES,
+        "device_pool_bytes": ARBITER_DEVICE_LEASE, "fused_scope": "store"},
+        n_tail=32, governor=arb, on_part=on_part, **kw)
+    torch.cuda.synchronize()
+    out["launches"] = dict(LAUNCHES)
+    out["wall_s"] = time.perf_counter() - t0
+    out["churn"] = churn
+    out["leases"] = {part: ls for part, (ls, _) in at_end.items()}
+    out["decisions"] = {part: n for part, (_, n) in at_end.items()}
+    recs = arb.records
+    out["arbiter"] = {
+        "total_bytes": POOL_BYTES, "kv_page_bytes": page,
+        "initial_leases": leases, "final_leases": dict(arb.leases),
+        "decisions": len(recs),
+        "shifts": sum(1 for r in recs if r["shift_bytes"]),
+        "shift_bytes": arb.shift_bytes_total,
+        "trajectory": [[r["leases"]["device"] // MB, r["leases"]["kv"] // MB,
+                        r["leases"]["prefix"] // MB, r["donor"],
+                        r["recipient"], r["shift_bytes"] // MB]
+                       for r in recs if r["shift_bytes"]],
+        "device_direction": {
+            part: out["leases"][part]["device"] - before["device"]
+            for before, part in ((leases, "load"),
+                                 (out["leases"]["load"], "tail"),
+                                 (out["leases"]["tail"], "churn"))},
+        "kv_pool": {"total_pages": kvp.total_pages,
+                    "pool_pages": kvp.cfg.pool_pages, **kvp.stats}}
+    emit({"phase": "arbiter", "card": card, **out})
+    bad = [r for r in recs if sum(r["leases"].values()) != POOL_BYTES]
+    if bad or arb.total_leased() != POOL_BYTES:
+        raise AssertionError(f"leases drifted from {POOL_BYTES} bytes: "
+                             f"{bad[:3]}")
+    if arb.shift_bytes_total <= 0:
+        raise AssertionError("the arbiter never moved a byte")
+    pool = out["tail"]["pool"]
+    if churn["pool"]["budget_bytes"] != arb.leases["device"]:
+        raise AssertionError(f"the device pool's budget "
+                             f"{churn['pool']['budget_bytes']} is not "
+                             f"the device lease {arb.leases['device']}")
+    for k in ("probe_store", "probe_tier"):
+        if out["launches"][k] <= 0 or out["launches"][k] != \
+                out["lookup_shapes"][k]["launching_calls"]:
+            raise AssertionError(f"{k} launched {out['launches'][k]} times "
+                                 f"in the arbiter phase, not once per call: "
+                                 f"{out['lookup_shapes'][k]}, pool {pool}")
+    return out
 
 
 # --------------------------- K6: attention kernel phase ----------------------
@@ -2097,6 +2406,16 @@ def main() -> int:
         raise AssertionError("the read-only tail was never served by the "
                              "one-launch store path")
 
+    # Adaptive phase: the staged stream over 4 shards under the §5 tuner;
+    # then the HBM arbiter over the pool phase's store and a KV pool.
+    seconds = {}
+    t0 = time.perf_counter()
+    adaptive_phase(card, staged, service_kw)
+    seconds["adaptive"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arbiter_phase(card, service_kw)
+    seconds["arbiter"] = time.perf_counter() - t0
+
     # Card-vs-CPU replays of one seeded stream: pool off, then the pool on
     # in each fused scope, with the kernels each must launch on the card.
     for scope, pool_bytes, kernels in (
@@ -2131,6 +2450,13 @@ def main() -> int:
               "fused_launches": on_card["iostats"]["fused_launches"],
               "launches": launched,
               "seconds": time.perf_counter() - t0, "identical": True})
+
+    # Card-vs-CPU replays of one seeded stream under the tuner, unsharded
+    # and over 4 shards.
+    t0 = time.perf_counter()
+    adaptive_replays(190)
+    seconds["adaptive_replay"] = time.perf_counter() - t0
+    emit({"phase": "new_phase_seconds", **seconds})
 
     # Serve phase: the serving entry point at Yi-6B's full width with the
     # reference's defaults (64 requests, batch 4, prompt 48, 16 tokens);

@@ -79,7 +79,7 @@ def _budget_tag(merge_budget):
 
 
 def enforce_wal(arena, scheduler) -> None:
-    """Phase 5: checkpoint if the min-LSN
+    """Phase 5 (shared by both schedulers): checkpoint if the min-LSN
     watermark passed the last checkpoint (or the interval knob fired),
     then truncate through the one shared path
     (``durability.checkpoint.truncate_below_min_lsn``)."""
@@ -143,8 +143,7 @@ def rank_flush_victim(cands, policy):
 
 
 class SegmentedScheduler:
-    """Shared tick/segment machinery (the sharded plane's global scheduler
-    reuses it; this package has only the single-store one).
+    """Shared tick/segment machinery of both schedulers.
 
     Subclasses provide the five phase implementations (``_mem_upkeep`` /
     ``_flush_pending`` / ``_enforce_memory`` / ``_enforce_log`` /
@@ -377,5 +376,177 @@ class MaintenanceScheduler(SegmentedScheduler):
             else:
                 # debt signal was stale (e.g. cleared by levels.adjust)
                 debts[name] = 0
+        self.carried_debt = sum(debts.values())
+        return steps
+
+
+class ShardedMaintenanceScheduler(SegmentedScheduler):
+    """Global maintenance arbiter of a sharded data plane.
+
+    Each shard keeps its own ``MaintenanceScheduler`` (the flush/upkeep
+    executor for that shard's trees), but nothing ticks them individually:
+    this class runs the same tick phases *across all shards* under
+    ONE write-memory budget, ONE log cap and ONE discretionary merge
+    budget -- the paper's cross-tree arbitration lifted to cross-shard:
+
+      * memory enforcement compares the arena-wide usage (every shard's
+        trees) against the shared threshold and picks flush victims by
+        the §4.2 policy ranked over all (shard, tree) pairs;
+      * log enforcement flushes the globally minimal-LSN tree, since all
+        shards append to the arena's single transaction log;
+      * the merge pass serves ``merge_budget`` maintenance units to the
+        (shard, tree) with the largest merge debt, wherever it lives --
+        a hot shard therefore drains the whole store's merge bandwidth,
+        which is exactly the backpressure the service's per-shard
+        admission gate then surfaces as ``Deferred`` on that shard only.
+
+    With one shard every phase degenerates to ``MaintenanceScheduler``'s
+    behavior bit-for-bit (the differential suite enforces this).
+    """
+
+    def __init__(self, stores, arena, *, merge_budget: int | None = None):
+        self.stores = list(stores)
+        self.arena = arena
+        self._init_counters(merge_budget)
+
+    def _arena(self):
+        return self.arena
+
+    # -- global aggregates ----------------------------------------------------
+    def _used(self) -> int:
+        return sum(s.write_memory_used() for s in self.stores)
+
+    def _min_lsn(self) -> int:
+        return min((s.min_lsn() for s in self.stores), default=_INF)
+
+    def _log_length(self) -> int:
+        m = self._min_lsn()
+        lp = self.arena.log_pos
+        return lp - (m if m < _INF else lp)
+
+    def pick_flush_victim(self):
+        """Globally ranked §4.2 flush victim: (store, tree) or None."""
+        return rank_flush_victim(
+            [(s, t) for s in self.stores for t in s.trees.values()
+             if not t.mem.is_empty()],
+            self.arena.cfg.flush_policy)
+
+    # -- tick phases (global twins of MaintenanceScheduler's) -----------------
+    def _mem_upkeep(self) -> int:
+        return sum(s.scheduler._mem_upkeep() for s in self.stores)
+
+    def _flush_pending(self) -> int:
+        flushes = 0
+        for s in self.stores:
+            while s._pending_evict:          # static-scheme LRU evictions
+                s.scheduler.flush_dataset(s._pending_evict.pop(0),
+                                          trigger="mem")
+                flushes += 1
+        return flushes
+
+    def _enforce_memory(self) -> int:
+        cfg = self.arena.cfg
+        flushes = 0
+        if cfg.scheme.startswith("btree-static"):
+            # per-dataset quota against the *global* write memory: a
+            # dataset's usage is summed over its per-shard slices and the
+            # whole dataset flushes everywhere once it crosses quota.
+            quota = self.arena.write_memory_bytes \
+                / max(1, cfg.max_active_datasets)
+            names: list[str] = []
+            for s in self.stores:
+                for ds in s.datasets:
+                    if ds not in names:
+                        names.append(ds)
+            for ds in names:
+                used = sum(s.trees[n].mem_bytes for s in self.stores
+                           for n in s.datasets.get(ds, ()))
+                if used >= quota:
+                    for s in self.stores:
+                        if ds in s.datasets:
+                            s.scheduler.flush_dataset(ds, trigger="mem")
+                    flushes += 1
+            return flushes
+        # shared-pool schemes
+        budget = cfg.mem_flush_threshold * self.arena.write_memory_bytes
+        for s in self.stores:
+            for t in s.trees.values():
+                m = t.mem
+                if hasattr(m, "budget_hint_bytes"):
+                    m.budget_hint_bytes = int(budget)
+                if getattr(m, "request_flush", False):
+                    s.scheduler.flush_tree(t, trigger="mem")
+                    m.request_flush = False
+                    flushes += 1
+        guard = 0
+        while self._used() > budget and guard < 1000:
+            guard += 1
+            pick = self.pick_flush_victim()
+            if pick is None:
+                break
+            s, t = pick
+            freed = s.scheduler.flush_tree(
+                t, trigger="mem", forced_kind=cfg.forced_flush_kind)
+            flushes += 1
+            if freed == 0:
+                break
+        # Paced flush slice (global twin; see MaintenanceScheduler).
+        thr = cfg.pacer_flush_threshold
+        if thr is not None and flushes == 0 \
+                and self._used() > thr * self.arena.write_memory_bytes:
+            pick = self.pick_flush_victim()
+            if pick is not None:
+                s, t = pick
+                s.scheduler.flush_tree(t, trigger="mem",
+                                       forced_kind=cfg.forced_flush_kind)
+                flushes += 1
+                self.arena.disk.stats.flush_slices += 1
+        return flushes
+
+    def _enforce_log(self) -> int:
+        cfg = self.arena.cfg
+        flushes = 0
+        guard = 0
+        while self._log_length() > cfg.mem_flush_threshold * cfg.max_log_bytes \
+                and guard < 1000:
+            guard += 1
+            if self._min_lsn() >= _INF:
+                break
+            pick = min(((s, t) for s in self.stores
+                        for t in s.trees.values()
+                        if not t.mem.is_empty() or t.min_lsn < _INF),
+                       key=lambda st: st[1].min_lsn, default=None)
+            if pick is None or pick[1].mem.is_empty():
+                break
+            freed = pick[0].scheduler.flush_tree(
+                pick[1], trigger="log", forced_kind=cfg.forced_flush_kind)
+            flushes += 1
+            if freed == 0:
+                break
+        return flushes
+
+    def _run_merges(self, budget: int | None) -> int:
+        """Largest-debt-first allocation of maintenance units across every
+        (shard, tree); unspent debt carries to the next tick."""
+        steps = 0
+        owners: dict = {}
+        debts: dict = {}
+        for si, s in enumerate(self.stores):
+            for t in s.trees.values():
+                k = (si, t.name)
+                owners[k] = (s, t)
+                debts[k] = t.merge_debt(s._tree_share(t))
+        guard = 0
+        while guard < 20_000 and (budget is None or steps < budget):
+            guard += 1
+            k = max(debts, key=debts.__getitem__, default=None)
+            if k is None or debts[k] <= 0:
+                break
+            s, t = owners[k]
+            if t.maintenance_step(s._tree_share(t)):
+                steps += 1
+                debts[k] = t.merge_debt(s._tree_share(t))
+            else:
+                debts[k] = 0
         self.carried_debt = sum(debts.values())
         return steps

@@ -1,4 +1,4 @@
-"""MemoryArena: the shared memory pool an LSM store draws from.
+"""MemoryArena: the shared memory pool one or more LSM stores draw from.
 
 The paper's architecture (§3) pools write memory and the buffer cache so
 the tuner can move memory to where the workload needs it. ``MemoryArena``
@@ -11,8 +11,11 @@ and one versioned ``Manifest`` (the durable record of on-disk SSTable
 state, carrying checkpoints). Write-memory resizes are logged as control
 records so crash recovery can re-apply them by value.
 
-This package has no sharded store yet, so an arena serves one store; the
-structure keeps the member list so the sharded plane can share it.
+A standalone ``LSMStore`` creates a private arena; a ``ShardedStore``
+creates ONE arena and hands it to every shard, which is how the paper's
+memory walls become *cross-shard* walls: all shards compete for the same
+write memory and buffer cache, append to the same log, and the
+governor/tuner arbitrates the boundary globally by resizing this arena.
 
 ``log_pos`` remains the canonical name for the log's byte position --
 kept as a compat property over ``wal.head_lsn`` (the setter moves the WAL
@@ -57,8 +60,8 @@ class MemoryArena:
         self.device_pool = None
 
     def register(self, store) -> int:
-        """Add a member store; returns its index (0 for a standalone
-        store)."""
+        """Add a member store; returns its index (== shard index for a
+        sharded store, 0 for a standalone one)."""
         if self.device_pool is None:
             self.device_pool = DevicePagePool(
                 store.backend, self.cfg.page_bytes,

@@ -243,7 +243,8 @@ class StoreConfig:
 class LSMStore:
     def __init__(self, cfg: StoreConfig, *, arena: MemoryArena | None = None):
         """``arena=None`` (standalone store) builds a private memory pool;
-        a caller may pass an arena to adopt its durability plane."""
+        a ``ShardedStore`` passes ONE shared arena to every shard so all
+        shards compete for the same write memory, buffer cache and log."""
         self.cfg = cfg.validate()
         self.backend = get_backend(cfg.backend, cfg.device)
         self.arena = arena if arena is not None else MemoryArena(cfg)

@@ -7,18 +7,23 @@ describing any reallocation it decided on -- or ``None`` when it has
 nothing to say. This unifies the two adaptation mechanisms the paper
 scatters across layers:
 
-  * the §5.4 memory tuner (write memory vs buffer cache boundary);
+  * the §5.4 memory tuner (write memory vs buffer cache boundary) --
+    ``AdaptiveGovernor``, wrapping ``AdaptiveMemoryController`` unchanged
+    in behavior;
   * the §4.2 flush-policy selection -- any governor may switch the store's
     flush policy through ``MemoryPlan.flush_policy``.
 
 ``StaticGovernor`` pins a fixed allocation (the baseline schemes) and is
-the service's default; ``StallGovernor`` tunes the pacer;
-``DevicePoolGovernor`` sizes the device page pool behind fused reads. The
-§5.4 tuner (``AdaptiveGovernor``) is not in this package yet.
+the service's default, as in the reference's code; ``StallGovernor`` tunes
+the pacer; ``DevicePoolGovernor`` sizes the device page pool behind fused
+reads; ``runtime.hbm_arbiter.HBMArbiter`` leases one device budget across
+the read and serving planes.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+from ..tuner.tuner import AdaptiveMemoryController, TunerConfig
 
 
 @dataclass(frozen=True)
@@ -69,6 +74,36 @@ class StaticGovernor(MemoryGovernor):
         self._pinned = True
         return MemoryPlan(write_memory_bytes=self.write_memory_bytes,
                           flush_policy=self.flush_policy, note="static-pin")
+
+
+class AdaptiveGovernor(MemoryGovernor):
+    """The §5.4 memory tuner as a governor, behavior-identical to driving
+    ``AdaptiveMemoryController.maybe_tune()`` per batch by hand.
+
+    The controller is built at ``attach`` (before any operations run), so
+    its tuning cycle baselines match a hand-constructed controller; its
+    records stay available at ``governor.controller.tuner.records``.
+    """
+
+    def __init__(self, cfg: TunerConfig | None = None):
+        self.cfg = cfg or TunerConfig()
+        self.controller: AdaptiveMemoryController | None = None
+
+    def attach(self, store) -> None:
+        self.controller = AdaptiveMemoryController(store, self.cfg)
+
+    def observe(self, service) -> MemoryPlan | None:
+        if self.controller is None:             # governor used store-less
+            self.attach(service.store)
+        rec = self.controller.maybe_tune()
+        if rec is None or rec.x_next == rec.x:
+            return None
+        return MemoryPlan(write_memory_bytes=int(rec.x_next),
+                          note=f"tuner:{rec.stopped or 'step'}")
+
+    @property
+    def records(self):
+        return self.controller.tuner.records if self.controller else []
 
 
 class DevicePoolGovernor(MemoryGovernor):

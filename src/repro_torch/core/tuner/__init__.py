@@ -1,4 +1,4 @@
-# The ghost cache and the tuner's Newton step; the rest of the memory
-# tuner (derivatives, controller) is not ported yet.
+from .derivatives import TunerStats, cost_derivative  # noqa: F401
 from .simcache import GhostCache  # noqa: F401
-from .tuner import TunerConfig, newton_step  # noqa: F401
+from .tuner import (AdaptiveMemoryController, MemoryTuner,  # noqa: F401
+                    TuneRecord, TunerConfig, newton_step)

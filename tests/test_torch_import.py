@@ -44,7 +44,16 @@ def test_import_loads_no_jax_and_no_reference_module():
                 "repro_torch.kernels.build",
                 "repro_torch.kernels.attention.attention",
                 "repro_torch.models.transformer",
-                "repro_torch.launch.serve"):
+                "repro_torch.launch.serve",
+                "repro_torch.core.tuner.f32",
+                "repro_torch.core.tuner.derivatives",
+                "repro_torch.core.tuner.tuner",
+                "repro_torch.core.lsm.cost_model",
+                "repro_torch.core.service.governor",
+                "repro_torch.core.shard.router",
+                "repro_torch.core.shard.sharded",
+                "repro_torch.core.engine.scheduler",
+                "repro_torch.runtime.hbm_arbiter"):
         assert mod in got["modules"]
 
 
