@@ -91,7 +91,33 @@
    be identical too, the tuner must actuate at least twice, and the card
    must launch K1, K2 and K5 (``"phase": "adaptive_replay"``). The three
    new phases' seconds follow (``"new_phase_seconds"``).
-8. Serve phase: ``repro_torch.launch.serve.main`` at Yi-6B's full width
+8. Recovery phase: the WAL and the manifest cloned after the staged
+   phase's load, after its mixed part and after the adaptive phase's
+   mixed part (``on_part``, between the timed parts), each recovered on the
+   card through ``StorageService.recover`` (the adaptive one over 4
+   shards, its router rebuilt from the manifest). Each recovered store
+   must equal the live one at its point (fingerprint,
+   ``RECOVERY_EXACT_COUNTERS``, log position, write memory, the WAL's
+   encoded records), answer held Get and Scan submits as the oracle says,
+   and launch K1, K2 and K5. Prints the recovery's wall seconds,
+   ``recovery_info``, replayed keys per second, K1's launches in the
+   replay and the first held submit's seconds (cold filters).
+9. Recovery replay phase: the card-vs-CPU replay's stream over 1 and 4
+   shards on the card, crashed after ten spread submits and once in the
+   middle of a tick (its flushes run, its truncation not yet); each
+   point recovered on the card and on the CPU, both equal to the live
+   store at that point; some point must recover from a checkpoint.
+10. Workers phase: K1 and K2 from 4 threads at once through one backend,
+    equal to the same calls made alone and every launch counted; then
+    the staged phase's stream again with 2 maintenance workers, held to
+    the staged phase's results, fingerprint, IOStats (but ``bg_*``),
+    buffer-cache counts and WAL bytes; the pool must consume prepares and
+    no prepare may raise. Prints the pool's counts, ``bg_segments``,
+    ``bg_overlap_us``, the launches and the mixed submits per second
+    beside the staged phase's. Then the replay stream with 0 and 4
+    workers on the card and 4 on the CPU, all three identical. The three
+    phases' seconds follow (``"recovery_workers_seconds"``).
+11. Serve phase: ``repro_torch.launch.serve.main`` at Yi-6B's full width
    (32 layers, f32 params, bf16 compute, random weights from seed 0) with
    the reference's defaults: 64 requests in batches of 4, 48 prompt
    tokens, 16 generated. K6 must launch exactly 32 x 17 x 16 = 8,704
@@ -99,7 +125,7 @@
    tokens/s (CUDA events only, no profiler attached), memory, the pool's
    stats, the governor's records and the entry point's lines. A second,
    short run (8 requests) is profiled over 5 decode steps.
-9. Card-vs-CPU model phase: Yi-6B at full width but 2 layers, batch 4,
+12. Card-vs-CPU model phase: Yi-6B at full width but 2 layers, batch 4,
    prompt 48, 8 decode steps, the same seeded weights on the card and on
    the CPU, in f32 and bf16 compute: the largest and the RMS logits
    difference within ``MODEL_TOL`` at every step, greedy tokens equal
@@ -122,6 +148,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -133,11 +160,17 @@ import torch  # noqa: E402
 from repro_torch.core import (AdaptiveGovernor, Delete, Get,  # noqa: E402
                               LSMStore, Put, Scan, ShardedStore,
                               StorageService, StoreConfig, TunerConfig)
+from repro_torch.core.durability import recover  # noqa: E402
+from repro_torch.core.durability import (  # noqa: E402
+    RECOVERY_EXACT_COUNTERS)
 from repro_torch.core.durability.wal import encode_record  # noqa: E402
 from repro_torch.core.engine.backend import (  # noqa: E402
     assign_bounds, bloom_sizing)
 from repro_torch.core.engine.numpy_backend import (  # noqa: E402
     merge_runs_numpy)
+from repro_torch.core.engine.scheduler import enforce_wal  # noqa: E402
+from repro_torch.core.engine.workers import (  # noqa: E402
+    MaintenanceWorkerPool)
 from repro_torch.core.engine.torch_backend import TorchBackend  # noqa: E402
 from repro_torch.core.lsm.sstable import (  # noqa: E402
     TOMBSTONE, partition_run, reset_sst_ids, sstable_from_run)
@@ -1145,15 +1178,20 @@ def timed_calls(acc: dict, obj, names):
     """Calls of, and host seconds inside, the methods ``names`` of ``obj``,
     added to ``acc[name]`` (a backend primitive copies to the card,
     launches, and copies back, so this includes the waits on the
-    device)."""
+    device). The maintenance workers call primitives from their own
+    threads, so the sums are added to under a lock."""
+    lock = threading.Lock()
+
     def wrap(name, fn):
         def timed(*a):
             t = time.perf_counter()
             try:
                 return fn(*a)
             finally:
-                acc[name][0] += 1
-                acc[name][1] += time.perf_counter() - t
+                dt = time.perf_counter() - t
+                with lock:
+                    acc[name][0] += 1
+                    acc[name][1] += dt
         return timed
 
     for n in names:
@@ -1339,10 +1377,13 @@ def run_service(dev, *, n_keys: int, batch: int, n_mixed: int, gets: int,
             timed_calls(prim, store.device_pool, POOL_CALLS), \
             (timed_calls(tuned, controller, ("tune_now",))
              if controller is not None else contextlib.nullcontext()):
-        out = _drive(svc, prim, rng, n_keys=n_keys, batch=batch,
-                     n_mixed=n_mixed, gets=gets, puts=puts, deletes=deletes,
-                     scans=scans, n_tail=n_tail,
-                     profile_submits=profile_submits, on_part=on_part)
+        try:
+            out = _drive(svc, prim, rng, n_keys=n_keys, batch=batch,
+                         n_mixed=n_mixed, gets=gets, puts=puts,
+                         deletes=deletes, scans=scans, n_tail=n_tail,
+                         profile_submits=profile_submits, on_part=on_part)
+        finally:
+            store.arena.workers.close()
     out["lookup_shapes"] = shape_summary(shapes)
     if controller is not None:
         out["tuner"] = tuner_report(svc, tuned["tune_now"])
@@ -1397,6 +1438,27 @@ class _Oracle:
         g_ids = self.ids[tree][self.zipf[tree](n)]
         g = svc.submit_strict([Get(tree, _key_of(g_ids))])[0]
         _check_get(g, self.live[tree], self.val[tree], g_ids, what)
+
+    def scan(self, svc, tree, n: int, rng, what: str) -> None:
+        """One submit of ``n`` Scans of 100 keys on ``tree`` from loaded
+        keys drawn with ``rng``, each count held to the oracle."""
+        lo = _key_of(self.ids[tree][rng.integers(0, len(self.ids[tree]),
+                                                 n)])
+        res = svc.submit_strict([Scan(tree, int(x), 100) for x in lo])
+        present = np.sort(_key_of(np.flatnonzero(self.live[tree])))
+        want = (np.searchsorted(present, lo + 100)
+                - np.searchsorted(present, lo))
+        got = np.array([r.count for r in res])
+        if not np.array_equal(got, want):
+            raise AssertionError(f"Scan mismatch in {what}")
+
+    def frozen(self, seed: int) -> "_Oracle":
+        """A copy of the oracle as it stands, with zipfian samplers of its
+        own drawn from ``seed`` (the run's samplers and values go on)."""
+        rng = np.random.default_rng(seed)
+        return _Oracle(self.ids, {t: v.copy() for t, v in self.val.items()},
+                       {t: v.copy() for t, v in self.live.items()},
+                       {t: Zipf(len(i), rng) for t, i in self.ids.items()})
 
 
 def _drive(svc, prim, rng, *, n_keys, batch, n_mixed, gets, puts, deletes,
@@ -1566,6 +1628,18 @@ def fingerprint(store) -> dict:
     return out
 
 
+def replay_requests(n_submits: int, seed: int, keys: int):
+    """The replay's seeded op stream: one list of requests a submit."""
+    rng = np.random.default_rng(seed)
+    for _ in range(n_submits):
+        tree = "a" if rng.random() < 0.7 else "b"
+        pk = rng.integers(0, keys, 200)
+        yield [Get(tree, rng.integers(0, keys, 100)),
+               Scan(tree, int(rng.integers(0, keys)), 200),
+               Put(tree, pk, rng.integers(0, 2**40, 200)),
+               Delete(tree, rng.integers(0, keys, 20))]
+
+
 def replay(dev, *, n_submits: int, seed: int = 1, shards=None, tuner=None,
            keys: int = 4000, **cfg_kw):
     """One seeded op stream over ``keys`` keys through a small store on
@@ -1579,15 +1653,8 @@ def replay(dev, *, n_submits: int, seed: int = 1, shards=None, tuner=None,
                          else LSMStore(cfg), governor=gov)
     for t in ("a", "b"):
         svc.create_tree(t)
-    rng = np.random.default_rng(seed)
     outs, n_ops = [], 0
-    for _ in range(n_submits):
-        tree = "a" if rng.random() < 0.7 else "b"
-        pk = rng.integers(0, keys, 200)
-        reqs = [Get(tree, rng.integers(0, keys, 100)),
-                Scan(tree, int(rng.integers(0, keys)), 200),
-                Put(tree, pk, rng.integers(0, 2**40, 200)),
-                Delete(tree, rng.integers(0, keys, 20))]
+    for reqs in replay_requests(n_submits, seed, keys):
         for r in svc.submit_strict(reqs):
             if hasattr(r, "found"):
                 outs.append(("get", r.found.tobytes(), r.vals.tobytes()))
@@ -1597,6 +1664,7 @@ def replay(dev, *, n_submits: int, seed: int = 1, shards=None, tuner=None,
                 outs.append((type(r).__name__, r.n))
         n_ops += 100 + 1 + 200 + 20
     st = svc.store
+    st.arena.workers.close()
     return {"fingerprint": [fingerprint(x) for x in _stores(st)],
             "outputs": outs,
             "records": [vars(r) for r in gov.records] if gov else None,
@@ -1615,17 +1683,20 @@ def compare_replays(a: dict, b: dict) -> None:
 
 
 # --------------------------- the §5 tuner and the HBM arbiter ----------------
-def adaptive_phase(card: str, staged: dict, service_kw: dict) -> dict:
+def adaptive_phase(card: str, staged: dict, service_kw: dict,
+                   on_part=None) -> dict:
     """The staged phase's store and stream over ``ADAPTIVE_SHARDS``
     hash-routed shards under ``AdaptiveGovernor(TunerConfig())``: the
     oracle holds every read, K1, K2 and K5 must launch (K1 at most once
-    per engine merge call), and the tuner must run."""
+    per engine merge call), and the tuner must run. ``on_part`` as
+    ``run_service``'s."""
     t0 = time.perf_counter()
     reset_sst_ids()
     zero_counts()
     out = run_service("cuda", cfg_kw={"max_log_bytes": SERVICE_MAX_LOG_BYTES},
                       shards=ADAPTIVE_SHARDS,
-                      governor=AdaptiveGovernor(TunerConfig()), **service_kw)
+                      governor=AdaptiveGovernor(TunerConfig()),
+                      on_part=on_part, **service_kw)
     torch.cuda.synchronize()
     out["launches"] = dict(LAUNCHES)
     out["wall_s"] = time.perf_counter() - t0
@@ -1780,6 +1851,372 @@ def arbiter_phase(card: str, service_kw: dict) -> dict:
                                  f"in the arbiter phase, not once per call: "
                                  f"{out['lookup_shapes'][k]}, pool {pool}")
     return out
+
+
+# --------------------------- crash recovery and the worker pool --------------
+# The replay stream's crash points: after these submits (spread over the
+# stream's 190), and once in the middle of a tick run by hand after
+# RECOVERY_MID_TICK (its flushes ran, its truncation not yet).
+RECOVERY_CRASH_SUBMITS = (10, 31, 52, 73, 94, 115, 136, 157, 178, 189)
+RECOVERY_MID_TICK = 100
+# Held submits against the oracle after a full-width recovery: Gets of
+# ``service_kw["gets"]`` keys, then Scans (16 of 100 keys) on each tree.
+RECOVERY_HELD_GETS = 4
+# The workers phase's pool, and the card-vs-CPU worker replay's.
+WORKERS = 2
+REPLAY_WORKERS = 4
+# IOStats that say where wall time went and differ with workers on.
+BG_FIELDS = ("bg_segments", "bg_overlap_us")
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def wal_digest(wal) -> str:
+    """sha256 of the WAL's retained encoded records, oldest first."""
+    h = hashlib.sha256()
+    for r in wal._records:
+        h.update(r.buf)
+    return h.hexdigest()
+
+
+def durable(store) -> dict:
+    """What a recovery of ``store``'s WAL and manifest must reproduce: the
+    fingerprint of every shard, ``RECOVERY_EXACT_COUNTERS``, the log
+    position, the write-memory size and the WAL's encoded records."""
+    return {"fingerprint": [fingerprint(s) for s in _stores(store)],
+            "counters": {k: getattr(store.disk.stats, k)
+                         for k in RECOVERY_EXACT_COUNTERS},
+            "log_pos": store.log_pos,
+            "write_memory_bytes": store.write_memory_bytes,
+            "wal": wal_digest(store.wal)}
+
+
+def crash_point(store, oracle=None, seed: int = 7) -> dict:
+    """What stable storage holds at this point of a run (clones of the WAL
+    and the manifest), the store's config, the live store's ``durable``
+    state, and a frozen copy of the run's oracle."""
+    return {"wal": store.wal.clone(), "manifest": store.manifest.clone(),
+            "cfg": store.cfg, "live": durable(store),
+            "oracle": None if oracle is None else oracle.frozen(seed)}
+
+
+def same_durable(got: dict, want: dict, what: str) -> None:
+    for k in want:
+        if got[k] != want[k]:
+            raise AssertionError(f"{what}: the recovered store differs from "
+                                 f"the live one in {k}")
+
+
+def recover_full_width(name: str, point: dict, gets: int,
+                       dev="cuda") -> dict:
+    """Recover ``point`` on the card through ``StorageService.recover``,
+    hold the store to the live one's ``durable`` state, then run held Get
+    and Scan submits against the point's oracle. K1 (the replay's ingest
+    and ticks), K2 (the first reads' filters: restore gives every table a
+    fresh sst_id) and K5 must launch."""
+    zero_counts()
+    t0 = time.perf_counter()
+    svc = StorageService.recover(point["cfg"], point["wal"],
+                                 point["manifest"])
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    replay_launches = dict(LAUNCHES)
+    same_durable(durable(svc.store), point["live"], name)
+    oracle, rng = point["oracle"], np.random.default_rng(11)
+    t0 = time.perf_counter()
+    oracle.get(svc, TREES[0], gets, f"{name}: first held submit")
+    first_s = time.perf_counter() - t0
+    for i in range(RECOVERY_HELD_GETS):
+        oracle.get(svc, TREES[i % 2], gets, f"{name}: held Get {i}")
+    for t in TREES:
+        oracle.scan(svc, t, 16, rng, f"{name}: held Scan on {t}")
+    _sync(dev)
+    launches = dict(LAUNCHES)
+    info = svc.store.recovery_info
+    svc.store.arena.workers.close()
+    missing = [k for k in ("merge_pair", "bloom_build", "bloom_probe")
+               if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by the recovered "
+                             f"store of {name}: {missing}")
+    return {"point": name, "recovery_s": secs, "info": info,
+            "replayed_keys_per_s": info["replayed_keys"] / secs,
+            "k1_launches_replay": replay_launches["merge_pair"],
+            "launches_replay": replay_launches,
+            "first_held_submit_s": first_s, "launches": launches,
+            "shards": len(_stores(svc.store)), "identical": True}
+
+
+def recovery_phase(card: str, points: dict, gets: int, dev="cuda") -> list:
+    """Each full-width crash point recovered on the card (see
+    ``recover_full_width``)."""
+    rows = []
+    for name in list(points):
+        row = recover_full_width(name, points.pop(name), gets, dev)
+        emit({"phase": "recovery", "card": card, **row})
+        rows.append(row)
+    return rows
+
+
+def replay_crashes(shards: int, n_submits: int = 190, seed: int = 1,
+                   keys: int = 4000, dev="cuda") -> list:
+    """The replay stream on the card over ``shards`` hash-routed shards,
+    with a crash point after each submit of ``RECOVERY_CRASH_SUBMITS`` and
+    one in the middle of a tick run by hand after ``RECOVERY_MID_TICK``
+    (logged write-ahead, its flushes run, the crash before its merges and
+    its WAL truncation; the live store then completes it)."""
+    reset_sst_ids()
+    cfg = small_config(dev)
+    store = ShardedStore(cfg, shards=shards)
+    svc = StorageService(store)
+    for t in ("a", "b"):
+        svc.create_tree(t)
+    points = []
+    for i, reqs in enumerate(replay_requests(n_submits, seed, keys)):
+        svc.submit_strict(reqs)
+        if i in RECOVERY_CRASH_SUBMITS:
+            points.append((f"submit {i}", crash_point(store)))
+        if i == RECOVERY_MID_TICK:
+            sch = store.scheduler
+            store.wal.append_tick("default")
+            sch.ticks += 1
+            for s in sch.stores:
+                s.scheduler._mem_upkeep()
+            sch._enforce_memory()
+            sch._enforce_log()
+            wal_c, man_c = store.wal.clone(), store.manifest.clone()
+            sch._run_merges(sch.merge_budget)
+            enforce_wal(store.arena, sch)
+            points.append((f"mid-tick after submit {i}",
+                           {"wal": wal_c, "manifest": man_c, "cfg": cfg,
+                            "live": durable(store)}))
+    return points
+
+
+def recovery_replay_phase(card: str, dev="cuda", **kw) -> list:
+    """Each crash point of ``replay_crashes`` over 1 and 4 shards recovered
+    on the card and on the CPU: both equal each other and the live store
+    at that point; some point recovers from a checkpoint."""
+    rows = []
+    for shards in REPLAY_SHARDS:
+        t0 = time.perf_counter()
+        zero_counts()
+        points = replay_crashes(shards, dev=dev, **kw)
+        rec = []
+        for name, pt in points:
+            t1 = time.perf_counter()
+            on_card = recover(pt["cfg"], pt["wal"].clone(),
+                              pt["manifest"].clone())
+            _sync(dev)
+            t2 = time.perf_counter()
+            cpu_cfg = StoreConfig(**{**vars(pt["cfg"]), "device": "cpu"})
+            on_cpu = recover(cpu_cfg, pt["wal"].clone(),
+                             pt["manifest"].clone())
+            t3 = time.perf_counter()
+            same_durable(durable(on_card), pt["live"], f"card, {name}")
+            same_durable(durable(on_cpu), pt["live"], f"CPU, {name}")
+            if on_card.recovery_info != on_cpu.recovery_info:
+                raise AssertionError(f"card and CPU recoveries of {name} "
+                                     f"differ in recovery_info")
+            rec.append({"point": name, "info": on_card.recovery_info,
+                        "card_s": t2 - t1, "cpu_s": t3 - t2})
+        _sync(dev)
+        if not any(r["info"]["from_checkpoint"] for r in rec):
+            raise AssertionError(f"no crash point over {shards} shard(s) "
+                                 f"recovered from a checkpoint")
+        row = {"phase": "recovery_replay", "shards": shards,
+               "points": rec, "launches": dict(LAUNCHES),
+               "seconds": time.perf_counter() - t0, "identical": True}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+@contextlib.contextmanager
+def watch_prepares(errors: list):
+    """Every prepare any ``MaintenanceWorkerPool`` accepts meanwhile runs
+    inside a wrapper that notes the exception it raises (the pool turns it
+    into a ``take`` miss) in ``errors``."""
+    submit = MaintenanceWorkerPool.submit
+
+    def watched(pool, key, fn):
+        def run():
+            try:
+                return fn()
+            except BaseException as e:
+                errors.append(f"{key!r}: {e!r}")
+                raise
+        return submit(pool, key, run)
+
+    MaintenanceWorkerPool.submit = watched
+    try:
+        yield errors
+    finally:
+        MaintenanceWorkerPool.submit = submit
+
+
+def _masked(iostats: dict) -> dict:
+    return {k: v for k, v in iostats.items() if k not in BG_FIELDS}
+
+
+def threaded_k1_k2(n_threads: int = 4, dev="cuda") -> dict:
+    """K1 (``merge_runs``, ``ingest_run``) and K2 (``bloom_build``) from
+    ``n_threads`` threads at once through one backend, at the engine's
+    shapes (2,048-key tables, 4,096-key ingests): every result equals the
+    same call made alone, and every launch is counted."""
+    rng = np.random.default_rng(5)
+    tb = TorchBackend(device=dev)
+    calls = []
+    for _ in range(n_threads):
+        mine = []
+        for j in range(12):
+            if j % 3 == 0:
+                mine.append(("merge", [(np.unique(rng.integers(0, 2**40, 2048)),
+                                        rng.integers(0, 2**40, 2048))
+                                       for _ in range(4)]))
+            elif j % 3 == 1:
+                mine.append(("ingest", (rng.integers(0, 3000, 4096),
+                                        rng.integers(0, 2**40, 4096))))
+            else:
+                mine.append(("bloom", np.unique(rng.integers(0, 2**40, 2048))))
+        calls.append(mine)
+
+    def call(kind, a):
+        if kind == "merge":
+            return [x.tolist() for x in tb.merge_runs(a)]
+        if kind == "ingest":
+            return [x.tolist() for x in tb.ingest_run(*a)]
+        return tb.bloom_build(a)[1].cpu().tolist()
+
+    alone = [[call(k, a) for k, a in c] for c in calls]
+    _sync(dev)
+    zero_counts()
+    got = [None] * n_threads
+    errors = []
+    start = threading.Barrier(n_threads)
+
+    def work(i):
+        try:
+            start.wait()
+            got[i] = [call(k, a) for k, a in calls[i]]
+        except BaseException as e:
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=work, args=(i,))
+               for i in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    _sync(dev)
+    launches = dict(LAUNCHES)
+    if errors:
+        raise AssertionError(f"threaded K1/K2 calls raised: {errors}")
+    if got != alone:
+        raise AssertionError("threaded K1/K2 calls differ from the same "
+                             "calls made alone")
+    want = {"merge_pair": 8 * n_threads, "bloom_build": 4 * n_threads}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"threaded launches counted {launches}, not "
+                             f"{want}")
+    return {"threads": n_threads, "calls": 12 * n_threads,
+            "launches": {k: launches[k] for k in want}, "identical": True}
+
+
+def workers_phase(card: str, staged: dict, staged_end: dict,
+                  service_kw: dict, dev="cuda", cfg_kw=None,
+                  n_replay: int = 190) -> dict:
+    """The staged phase's stream again (same seed, same submits) with
+    ``WORKERS`` maintenance workers: every Get and Scan result, the
+    fingerprint, every IOStats field but ``bg_*``, the buffer cache's
+    counts and the WAL's encoded records equal the staged phase's; the
+    pool must consume prepares and no prepare may raise. Then the replay
+    stream on the card with 0 and ``REPLAY_WORKERS`` workers and on the
+    CPU with ``REPLAY_WORKERS``: all three identical (``bg_*`` aside).
+    ``dev``, ``cfg_kw`` (the staged phase's store fields) and ``n_replay``
+    let a CPU rehearsal run it small."""
+    t0 = time.perf_counter()
+    threads = threaded_k1_k2(dev=dev)
+    errors: list = []
+    end: dict = {}
+
+    def on_part(part, svc, oracle):
+        if part == "mixed":
+            pool = svc.store.arena.workers
+            end.update(durable(svc.store), pool={
+                k: getattr(pool, k) for k in ("workers", "submitted",
+                                              "prepared", "hits", "misses",
+                                              "wasted")})
+
+    reset_sst_ids()
+    zero_counts()
+    with watch_prepares(errors):
+        out = run_service(dev, cfg_kw={
+            **(cfg_kw or {}), "max_log_bytes": SERVICE_MAX_LOG_BYTES,
+            "maintenance_workers": WORKERS}, on_part=on_part, **service_kw)
+    _sync(dev)
+    out["launches"] = dict(LAUNCHES)
+    out["wall_s"] = time.perf_counter() - t0
+    out["k1"] = k1_per_call(out)
+    io = out["mixed"]["iostats"]
+    row = {"phase": "workers", "card": card, "workers": WORKERS,
+           "pool": end["pool"], "prepare_errors": errors,
+           "bg": {k: io[k] for k in BG_FIELDS},
+           "launches": out["launches"], "k1": out["k1"],
+           "submits_per_s": {"workers": out["mixed"]["submits_per_s"],
+                             "staged": staged["mixed"]["submits_per_s"]},
+           "load_s": out["load_s"], "mixed_wall_s": out["mixed_wall_s"],
+           "primitives_total": out["primitives_total"], "threads": threads}
+    want = staged["mixed"]
+    for what, x, y in (("results", out["mixed"]["digest"], want["digest"]),
+                       ("IOStats but bg_*", _masked(io),
+                        _masked(want["iostats"])),
+                       ("cache hits and misses", out["mixed"]["cache"],
+                        want["cache"])):
+        if x != y:
+            emit(row)
+            raise AssertionError(f"workers phase differs from the staged "
+                                 f"phase in {what}")
+    same_durable({k: end[k] for k in staged_end}, staged_end,
+                 "workers phase against the staged phase")
+    t1 = time.perf_counter()
+    zero_counts()
+    rep = {"card_0": replay(dev, n_submits=n_replay)}
+    rep["card_w"] = replay(dev, n_submits=n_replay,
+                           maintenance_workers=REPLAY_WORKERS)
+    _sync(dev)
+    replay_launches = dict(LAUNCHES)
+    rep["cpu_w"] = replay("cpu", n_submits=n_replay,
+                          maintenance_workers=REPLAY_WORKERS)
+    for r in rep.values():
+        r["iostats"] = _masked(r["iostats"])
+    compare_replays(rep["card_0"], rep["card_w"])
+    compare_replays(rep["card_w"], rep["cpu_w"])
+    row["replay"] = {"workers": REPLAY_WORKERS,
+                     "wal_records": len(rep["card_w"]["wal"]),
+                     "launches": replay_launches,
+                     "seconds": time.perf_counter() - t1, "identical": True}
+    row["wall_s"] = time.perf_counter() - t0
+    emit(row)
+    if errors:
+        raise AssertionError(f"worker prepares raised on the card: "
+                             f"{errors[:3]}")
+    if not end["pool"]["hits"] > 0:
+        raise AssertionError(f"no worker prepare was consumed: "
+                             f"{end['pool']}")
+    missing = [k for k in ("merge_pair", "bloom_build", "bloom_probe")
+               if out["launches"][k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched in the workers "
+                             f"phase: {missing}")
+    if out["k1"]["launches"] > out["k1"]["calls"]:
+        raise AssertionError(f"K1 launched more than once per merge_runs or "
+                             f"ingest_run call in the workers phase: "
+                             f"{out['k1']}")
+    return row
 
 
 # --------------------------- K6: attention kernel phase ----------------------
@@ -2351,11 +2788,24 @@ def main() -> int:
     # Staged service phase (device pool off): the default path.
     service_kw = dict(n_keys=1 << 20, batch=4096, n_mixed=256, gets=2048,
                       puts=2048, deletes=64, scans=16, profile_submits=8)
+    # Crash points for the recovery phase: the durable pair and the live
+    # state after the staged load, the staged mixed part and the adaptive
+    # mixed part (taken between parts, outside the timed windows).
+    points: dict = {}
+
+    def keep_points(tag, parts):
+        def on_part(part, svc, oracle):
+            if part in parts:
+                points[f"{tag} {part}"] = crash_point(svc.store, oracle)
+        return on_part
+
     t0 = time.perf_counter()
     reset_sst_ids()
     zero_counts()
     staged = run_service("cuda", cfg_kw={
-        "max_log_bytes": SERVICE_MAX_LOG_BYTES}, **service_kw)
+        "max_log_bytes": SERVICE_MAX_LOG_BYTES},
+        on_part=keep_points("staged", ("load", "mixed")), **service_kw)
+    staged_end = points["staged mixed"]["live"]
     torch.cuda.synchronize()
     staged["launches"] = dict(LAUNCHES)
     staged["wall_s"] = time.perf_counter() - t0
@@ -2410,7 +2860,8 @@ def main() -> int:
     # then the HBM arbiter over the pool phase's store and a KV pool.
     seconds = {}
     t0 = time.perf_counter()
-    adaptive_phase(card, staged, service_kw)
+    adaptive_phase(card, staged, service_kw,
+                   on_part=keep_points("adaptive", ("mixed",)))
     seconds["adaptive"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     arbiter_phase(card, service_kw)
@@ -2457,6 +2908,22 @@ def main() -> int:
     adaptive_replays(190)
     seconds["adaptive_replay"] = time.perf_counter() - t0
     emit({"phase": "new_phase_seconds", **seconds})
+
+    # Crash recovery at full width (the staged load and mixed part, the
+    # adaptive mixed part), the replay stream crashed and recovered on the
+    # card and on the CPU, then the staged stream under maintenance
+    # workers.
+    seconds = {}
+    t0 = time.perf_counter()
+    recovery_phase(card, points, service_kw["gets"])
+    seconds["recovery"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    recovery_replay_phase(card)
+    seconds["recovery_replay"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    workers_phase(card, staged, staged_end, service_kw)
+    seconds["workers"] = time.perf_counter() - t0
+    emit({"phase": "recovery_workers_seconds", **seconds})
 
     # Serve phase: the serving entry point at Yi-6B's full width with the
     # reference's defaults (64 requests, batch 4, prompt 48, 16 tokens);

@@ -23,9 +23,10 @@ and shared (numpy run arrays -- the engine never mutates them in place),
 so a checkpoint stays valid while the live store keeps running: exactly
 what stable storage would hold at a crash.
 
-Restoring a store from a checkpoint and replaying the WAL tail on top is
-crash recovery, which this package does not have yet; the capture side
-runs on every tick that truncates the log.
+``restore_checkpoint`` rebuilds a fresh store from a checkpoint; the WAL
+tail replayed on top (see ``recovery.py``) then reproduces the crashed
+store's structure bit-for-bit, because scheduler ticks are deterministic
+functions of store state.
 
 Volatile by design (NOT captured): the clock buffer cache and the ghost
 cache. A recovered store starts cold, so cache-dependent read counters
@@ -35,11 +36,13 @@ IOStats fields the recovery contract guarantees bit-identical.
 """
 from __future__ import annotations
 
+from collections import deque
 from dataclasses import dataclass
 
 from ..lsm.baselines import AccordionMemComponent, BTreeMemComponent
 from ..lsm.grouped_l0 import GroupedL0
 from ..lsm.memtable import PartitionedMemComponent
+from ..lsm.sstable import sstable_from_run
 from .manifest import LiveSSTable
 
 # IOStats fields that are pure functions of the (replayed) write-path
@@ -207,3 +210,89 @@ def checkpoint_now(arena, scheduler) -> Checkpoint:
     ck = take_checkpoint(arena, scheduler)
     truncate_below_min_lsn(arena)
     return ck
+
+
+# --------------------------- restore -----------------------------------------
+def _restore_mem(mem, image: dict) -> None:
+    kind = image["kind"]
+    if kind == "partitioned":
+        assert isinstance(mem, PartitionedMemComponent)
+        mem.active = dict(image["active"])
+        mem.active_lsn_min = image["active_lsn_min"]
+        mem.levels = [
+            [sstable_from_run(k, v, lmin, lmax, mem.entry_bytes,
+                              mem.page_bytes)
+             for k, v, lmin, lmax in lvl] for lvl in image["levels"]]
+        mem.rr_key = image["rr_key"]
+    elif kind == "btree":
+        assert isinstance(mem, BTreeMemComponent)
+        mem.data = dict(image["data"])
+        mem.lsn_min_ = image["lsn_min"]
+        mem.lsn_max_ = image["lsn_max"]
+    else:
+        assert isinstance(mem, AccordionMemComponent)
+        mem.active = dict(image["active"])
+        mem.segments = list(image["segments"])
+        mem.lsn_min_ = image["lsn_min"]
+        mem.lsn_max_ = image["lsn_max"]
+        mem.request_flush = image["request_flush"]
+        mem.budget_hint_bytes = image["budget_hint"]
+    vars(mem.stats).update(image["stats"])
+
+
+def _restore_tree(tree, image: dict, payloads: dict, shard: int,
+                  live_out: dict) -> None:
+    def build(sst_id):
+        p = payloads[sst_id]
+        sst = sstable_from_run(p.keys, p.vals, p.lsn_min, p.lsn_max,
+                               p.entry_bytes, p.page_bytes)
+        live_out[sst.sst_id] = LiveSSTable(
+            shard, tree.name, p.keys, p.vals, p.lsn_min, p.lsn_max,
+            p.entry_bytes, p.page_bytes, p.kind)
+        # Files medium: the restored table gets a fresh sst_id, so its
+        # pages must exist under that id for reads to have a file to hit
+        # (counters untouched -- the original write was already accounted).
+        tree.disk.ensure_sst(sst)
+        return sst
+
+    _restore_mem(tree.mem, image["mem"])
+    if "groups" in image["l0"]:
+        tree.l0.groups = [[build(i) for i in g]
+                          for g in image["l0"]["groups"]]
+    else:
+        tree.l0.runs = [build(i) for i in image["l0"]["runs"]]
+    tree.levels.levels = [[build(i) for i in lvl]
+                          for lvl in image["levels"]]
+    tree.levels.deleting_l1 = image["deleting_l1"]
+    tree.partial_flush_window = list(image["partial_flush_window"])
+    vars(tree.stats).update(image["stats"])
+
+
+def restore_checkpoint(store, ck: Checkpoint) -> None:
+    """Rebuild a fresh (empty) sharded store to the checkpoint image.
+    Runs under WAL replay mode, so nothing here re-logs. The manifest is
+    rebased to the checkpoint version with the restored live set; the
+    subsequent tail replay re-emits the post-checkpoint edits."""
+    if len(store.shards) != len(ck.shards):
+        raise ValueError(
+            f"checkpoint holds {len(ck.shards)} shard images but the "
+            f"store has {len(store.shards)} shards; recover with the "
+            f"original router")
+    for name, ds, e in ck.schema:
+        store.create_tree(name, dataset=ds, entry_bytes=e)
+    live: dict[int, LiveSSTable] = {}
+    for si, image in enumerate(ck.shards):
+        s = store.shards[si].store
+        for name, ti in image["trees"].items():
+            _restore_tree(s.trees[name], ti, ck.payloads, si, live)
+        s._rate_win = {n: deque(w) for n, w in image["rate_win"].items()}
+        s._share_ewma = dict(image["share_ewma"])
+        s._active_ds = list(image["active_ds"])
+        s._pending_evict = list(image["pending_evict"])
+    arena = store.arena
+    arena.restore_write_memory(ck.write_memory_bytes)
+    vars(arena.disk.stats).update(ck.iostats)
+    store.scheduler.ticks = ck.scheduler["ticks"]
+    store.scheduler.segments = ck.scheduler.get("segments", 0)
+    store.scheduler.carried_debt = ck.scheduler["carried_debt"]
+    arena.manifest.reset_to_checkpoint(ck, live)

@@ -122,5 +122,11 @@ class MaintenancePacer:
                 self._pending = 0       # debt drained: burst fully paid
 
         sched.run_segment("wal")
+        # Cross-pass overlap: with background workers on, submit the next
+        # merge computations now so they run while the foreground handles
+        # the next write batches -- including the (flush-averse) passes
+        # that release no slice. A pure hint: no store state changes and
+        # nothing is WAL-logged, so paced replay is untouched.
+        sched.prefetch_merges()
         rep.carried_debt = sched.carried_debt
         return rep

@@ -195,6 +195,38 @@ class SegmentedScheduler:
         arena.wal.commit()
         return rep
 
+    # -- background prepare (engine/workers.py) -------------------------------
+    def _merge_candidates(self):
+        """``(debt, store, tree)`` triples with positive merge debt --
+        the prefetcher's ranking input (subclasses provide it)."""
+        raise NotImplementedError
+
+    def prefetch_merges(self, limit: int | None = None) -> int:
+        """Speculatively submit the next merge computations to the
+        arena's worker pool, largest debt first (up to ``limit`` jobs,
+        default one per worker). Entirely side-effect-free with respect
+        to store state: prepares are pure and consumed only when the
+        apply step derives the identical input key, so replay -- which
+        never prefetches -- recomputes inline bit-identically. Returns
+        the number of jobs submitted (0 with workers off)."""
+        pool = getattr(self._arena(), "workers", None)
+        if pool is None or not pool.enabled:
+            return 0
+        if limit is None:
+            limit = pool.workers
+        n = 0
+        for _, s, t in sorted(self._merge_candidates(),
+                              key=lambda c: -c[0]):
+            pv = t.preview_merge(s._tree_share(t))
+            if pv is None:
+                continue
+            key, runs = pv
+            if pool.submit(key, lambda b=t.backend, r=runs: b.merge_runs(r)):
+                n += 1
+            if n >= limit:
+                break
+        return n
+
     def tick(self, *, merge_budget=_UNSET) -> TickReport:
         """One stop-the-world maintenance round: all five segments in
         canonical order under ONE ``TickRecord``. ``merge_budget``
@@ -359,6 +391,7 @@ class MaintenanceScheduler(SegmentedScheduler):
         structures or share, so the cached ranking stays exact -- and a
         sequence of bounded slices serves exactly the step sequence one
         draining pass would."""
+        self.prefetch_merges()
         s = self.store
         steps = 0
         debts = {t.name: t.merge_debt(s._tree_share(t))
@@ -378,6 +411,15 @@ class MaintenanceScheduler(SegmentedScheduler):
                 debts[name] = 0
         self.carried_debt = sum(debts.values())
         return steps
+
+    def _merge_candidates(self):
+        s = self.store
+        out = []
+        for t in s.trees.values():
+            d = t.merge_debt(s._tree_share(t))
+            if d > 0:
+                out.append((d, s, t))
+        return out
 
 
 class ShardedMaintenanceScheduler(SegmentedScheduler):
@@ -528,6 +570,7 @@ class ShardedMaintenanceScheduler(SegmentedScheduler):
     def _run_merges(self, budget: int | None) -> int:
         """Largest-debt-first allocation of maintenance units across every
         (shard, tree); unspent debt carries to the next tick."""
+        self.prefetch_merges()
         steps = 0
         owners: dict = {}
         debts: dict = {}
@@ -550,3 +593,12 @@ class ShardedMaintenanceScheduler(SegmentedScheduler):
                 debts[k] = 0
         self.carried_debt = sum(debts.values())
         return steps
+
+    def _merge_candidates(self):
+        out = []
+        for s in self.stores:
+            for t in s.trees.values():
+                d = t.merge_debt(s._tree_share(t))
+                if d > 0:
+                    out.append((d, s, t))
+        return out

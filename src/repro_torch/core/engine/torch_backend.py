@@ -18,9 +18,37 @@ is ever refused. On a CPU device every kernel wrapper runs its plain
 PyTorch version; that is the only way a plain version is reached.
 
 ``launches`` is the kernel wrappers' own launch count (plain integers,
-one per kernel, for the whole process).
+one per kernel, for the whole process, each added to under one lock).
+
+Threads. With ``maintenance_workers > 0`` the worker pool's threads call
+``merge_runs`` and ``bloom_build`` on the same backend while the
+foreground calls ``ingest_run``, ``merge_runs`` and the read primitives.
+Three things keep that exact:
+
+  * every thread packs its runs into staging buffers of its own
+    (``_staging``, one ``merge_k.Staging`` per thread), so a worker's
+    merge and the foreground's ingest never overwrite each other's
+    packed input or result, and a grow never replaces a buffer another
+    thread is still copying from;
+  * ``merge_runs``, ``ingest_run`` and ``bloom_build`` make the
+    backend's device the calling thread's current device (``_on_device``)
+    and launch on that thread's current stream. The pool's threads set
+    no stream, so their launches go to the device's default stream, as
+    the foreground's do (the store sets none). K1's result comes back
+    through a synchronous copy, so a merge handed across threads is a
+    numpy array. A worker's filter is a device tensor, and the pool's
+    ``take`` returns it only after ``bloom_build`` returned, that is
+    after K2 was enqueued; the foreground's K5 is enqueued later on the
+    same stream, so the stream runs it after K2, and the allocator, which
+    tracks blocks per stream, never hands the filter's memory out while
+    K5 may read it;
+  * the launch counts are added to under one lock
+    (``kernels._launch.count``).
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -58,7 +86,29 @@ class TorchBackend(ExecutionBackend):
         self.device = resolve_device(device)
         self.k_hashes = k_hashes
         self.launches = LAUNCHES
-        self._staging = merge_k.Staging(self.device)
+        # The CUDA device index every thread sets before it launches (a
+        # worker thread starts on device 0, whatever the foreground set).
+        self._index = None
+        if self.device.type == "cuda":
+            self._index = (self.device.index if self.device.index is not None
+                           else torch.cuda.current_device())
+        self._local = threading.local()
+
+    @property
+    def _staging(self) -> merge_k.Staging:
+        """The calling thread's staging buffers (see the module's
+        docstring, Threads)."""
+        st = getattr(self._local, "staging", None)
+        if st is None:
+            st = self._local.staging = merge_k.Staging(self.device)
+        return st
+
+    def _on_device(self):
+        """Make the backend's device current in the calling thread for
+        the span of one primitive (nothing to do on the CPU)."""
+        if self._index is None:
+            return contextlib.nullcontext()
+        return torch.cuda.device(self._index)
 
     def _to(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(
@@ -74,7 +124,8 @@ class TorchBackend(ExecutionBackend):
             return np.empty(0, np.int64), np.empty(0, np.int64)
         if len(runs) == 1:
             return runs[0]
-        return merge_k.merge_runs_host(runs, self.device, self._staging)
+        with self._on_device():
+            return merge_k.merge_runs_host(runs, self.device, self._staging)
 
     # -- write ingest --------------------------------------------------------
     def ingest_run(self, keys, vals):
@@ -88,15 +139,18 @@ class TorchBackend(ExecutionBackend):
             return keys, vals, np.empty(0, np.int64)
         order = ingest_order(keys)
         ordered, h = keys[order], len(keys) // 2
-        ks, src = merge_k.merge_runs_host(
-            [(ordered[:h], order[:h]), (ordered[h:], order[h:])],
-            self.device, self._staging)
+        with self._on_device():
+            ks, src = merge_k.merge_runs_host(
+                [(ordered[:h], order[:h]), (ordered[h:], order[h:])],
+                self.device, self._staging)
         return ks, vals[src], src
 
     # -- bloom ---------------------------------------------------------------
     def bloom_build(self, keys):
         _, n_slots = bloom_sizing(len(keys))
-        filt = bloom_k.bloom_build(self._to(keys), n_slots, self.k_hashes)
+        with self._on_device():
+            filt = bloom_k.bloom_build(self._to(keys), n_slots,
+                                       self.k_hashes)
         return ("torch", filt)
 
     @staticmethod

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 from ..durability.manifest import Manifest
 from ..durability.wal import WriteAheadLog
+from ..engine.workers import MaintenanceWorkerPool
 from ..tuner.simcache import GhostCache
 from .cache import ClockCache, Disk
 from .device_pool import DevicePagePool
@@ -58,6 +59,12 @@ class MemoryArena:
         # execution backend. Residency is derived state, so it is never
         # checkpointed.
         self.device_pool = None
+        # Background maintenance workers (engine/workers.py), shared by
+        # every member store: speculative prepares of merge/Bloom compute.
+        # With maintenance_workers=0 (default) the pool is inert -- no
+        # threads exist and every compute runs inline, bit-identically.
+        self.workers = MaintenanceWorkerPool(cfg.maintenance_workers,
+                                             stats=self.disk.stats)
 
     def register(self, store) -> int:
         """Add a member store; returns its index (== shard index for a
@@ -107,3 +114,13 @@ class MemoryArena:
                     // cfg.page_bytes)
         self.cache.resize(pages)
         self.wal.append_set_write_memory(x)
+
+    def restore_write_memory(self, x: int) -> None:
+        """Checkpoint restore: re-apply a captured write-memory size
+        verbatim (it was either the config value or a past
+        ``set_write_memory`` result, so it is already clamped -- clamping
+        again would move a below-floor config value)."""
+        self.write_memory_bytes = int(x)
+        pages = max(0, (self.cfg.total_memory_bytes - x
+                        - self.cfg.sim_cache_bytes) // self.cfg.page_bytes)
+        self.cache.resize(pages)

@@ -271,6 +271,13 @@ class Disk:
             self.cache.insert((sst.sst_id, p))
         self.cache.insert((sst.sst_id, -1))  # bloom pages pinned as one unit
 
+    def ensure_sst(self, sst) -> None:
+        """Make a restored table's file exist without touching counters
+        (checkpoint restore re-keys tables to fresh sst_ids; the write
+        was already accounted when the original id flushed). The memory
+        medium keeps no files, so there is nothing to make; the files
+        medium's page store will do it here."""
+
     def drop_sst(self, sst) -> None:
         pids = [(sst.sst_id, p) for p in range(-1, sst.num_pages)]
         self.cache.invalidate_many(pids)

@@ -143,8 +143,12 @@ class StoreConfig:
     # interval/budget knobs from the observed stall histogram (deadband +
     # dwell). Requires pacing to be on.
     pacer_autotune: bool = False
-    # Background maintenance workers: only 0 (every maintenance compute
-    # inline) until the workers-and-recovery slice of the port lands.
+    # Background maintenance workers (engine/workers.py): threads running
+    # the compute-heavy, side-effect-free part of merge slices (run
+    # sort/dedup through K1, Bloom builds through K2) speculatively off
+    # the foreground path. All side effects still commit inline at the
+    # logged segment boundaries, so store state is bit-identical for ANY
+    # worker count; 0 (default) creates no threads at all.
     maintenance_workers: int = 0
     # Physical storage plane: only "memory" (WAL and SSTables as
     # byte-accounted RAM buffers; nothing is fsynced) until the
@@ -216,11 +220,10 @@ class StoreConfig:
                 f"pacer_autotune requires paced maintenance: set "
                 f"pacer_interval_bytes (got pacer_interval_bytes="
                 f"{self.pacer_interval_bytes})")
-        if self.maintenance_workers != 0:
+        if self.maintenance_workers < 0:
             raise ValueError(
-                f"maintenance_workers must be 0: background maintenance "
-                f"workers come with the workers-and-recovery slice of the "
-                f"port, got {self.maintenance_workers}")
+                f"maintenance_workers must be >= 0 (0 runs all maintenance "
+                f"inline), got {self.maintenance_workers}")
         if self.storage_medium not in STORAGE_MEDIA:
             raise ValueError(
                 f"unknown storage_medium {self.storage_medium!r}; "
@@ -293,7 +296,8 @@ class LSMStore:
             dynamic_levels=cfg.dynamic_levels,
             static_num_levels=cfg.static_num_levels,
             backend=self.backend, fused_scope=cfg.fused_scope,
-            manifest=self.arena.manifest, shard_id=self.shard_id)
+            manifest=self.arena.manifest, shard_id=self.shard_id,
+            workers=self.arena.workers)
         self.trees[name] = tree
         # Schema record: one TreeCreate per logical tree (the WAL dedups
         # the per-shard creates of a sharded store).

@@ -48,9 +48,13 @@ class LSMTree:
                  static_num_levels: int | None = None,
                  backend=None,
                  fused_scope: str = "store",
-                 manifest=None, shard_id: int = 0):
+                 manifest=None, shard_id: int = 0, workers=None):
         self.name = name
         self.backend = backend or get_backend()
+        # Background prepare pool (engine/workers.py; None or disabled =
+        # every merge/Bloom compute runs inline). Only pure computation is
+        # ever offloaded: all side effects stay on the foreground path.
+        self.workers = workers
         self.disk = disk
         # "store": try the one-launch cross-tier probe first, falling back
         # to per-tier fused, then staged. "tier": per-tier fused only.
@@ -145,6 +149,7 @@ class LSMTree:
                 self.disk.write_sst(sst, flush=True)
                 self._manifest_add(sst, "flush")
                 self.l0.insert(sst)
+                self._prepare_bloom(sst)
                 total += sst.size_bytes
         if trigger == "mem":
             self.stats.bytes_flushed_mem += total
@@ -193,6 +198,33 @@ class LSMTree:
         return self._emit_flush(runs, trigger=trigger, log_pos=log_pos)
 
     # -- merges (maintenance) -----------------------------------------------------
+    def _merge_key(self, read):
+        """Identity of one merge computation: the sst_ids of the tables it
+        reads, in run order. SSTables are immutable and ids are never
+        reused within a store, so equal keys imply identical inputs --
+        which is what lets a worker-prepared ``merge_runs`` result stand
+        in for the inline one bit-for-bit."""
+        return ("merge", self.shard_id, self.name,
+                tuple(t.sst_id for t in read))
+
+    def _merge_compute(self, read, runs):
+        """The merge's pure compute: consume a worker-prepared result for
+        these exact inputs, or run ``merge_runs`` inline (always inline
+        with workers off -- today's behavior, bit-identical)."""
+        w = self.workers
+        if w is None or not w.enabled:
+            return self.backend.merge_runs(runs)
+        return w.take(self._merge_key(read),
+                      lambda: self.backend.merge_runs(runs))
+
+    def _prepare_bloom(self, sst) -> None:
+        """Speculatively build a fresh table's Bloom filter off-thread
+        (the read path will want it; ``_bloom`` consumes it)."""
+        w = self.workers
+        if w is not None and w.enabled:
+            w.submit(("bloom", self.backend.name, sst.sst_id),
+                     lambda k=sst.keys, b=self.backend: b.bloom_build(k))
+
     def _merge_write_out(self, keys, vals, lsn_min, lsn_max):
         outs = partition_run(keys, vals, lsn_min, lsn_max, self.entry_bytes,
                              self.disk.page_bytes, self.sstable_bytes)
@@ -200,6 +232,7 @@ class LSMTree:
             self.disk.write_sst(sst, flush=False)
             self._manifest_add(sst, "merge")
             self.stats.merge_pages_written += sst.num_pages + sst.bloom_pages()
+            self._prepare_bloom(sst)
         return outs
 
     def _purge_tombstones_at_bottom(self, keys, vals, target: int):
@@ -242,7 +275,7 @@ class LSMTree:
         read += olds
         for t in read:
             self.disk.merge_read_sst(t)
-        keys, vals = self.backend.merge_runs(runs)
+        keys, vals = self._merge_compute(read, runs)
         keys, vals = self._purge_tombstones_at_bottom(keys, vals, ti)
         self.disk.stats.entries_merged_disk += sum(len(r[0]) for r in runs)
         lsn_min = min(t.lsn_min for t in read)
@@ -263,7 +296,7 @@ class LSMTree:
         for t in [victim] + olds:
             self.disk.merge_read_sst(t)
         runs = [(victim.keys, victim.vals)] + [(t.keys, t.vals) for t in olds]
-        keys, vals = self.backend.merge_runs(runs)
+        keys, vals = self._merge_compute([victim] + olds, runs)
         keys, vals = self._purge_tombstones_at_bottom(keys, vals, i + 1)
         self.disk.stats.entries_merged_disk += sum(len(r[0]) for r in runs)
         outs = self._merge_write_out(
@@ -321,6 +354,74 @@ class LSMTree:
             debt += 1
         return debt
 
+    def preview_merge(self, write_mem_share: float):
+        """Best-effort pure preview of the disk merge the next
+        ``maintenance_step`` would run: ``(key, runs)`` for the worker
+        pool, or None when the next step is not a disk merge (memory
+        work first, nothing to merge).
+
+        Mirrors ``maintenance_step``'s selection WITHOUT mutating
+        anything -- in particular it does not run ``levels.adjust``, so a
+        step whose adjust changes the level structure simply yields a
+        stale key. Pending *memory* work (seal, in-memory merges) does
+        not block the preview: it never touches L0 or the levels, so the
+        disk merge that follows it still reads the previewed tables.
+        Staleness is safe by construction: a prepared result is only
+        ever consumed when the apply step derives the *same* key from
+        the tables it actually reads; a mismatch is just an inline
+        compute plus wasted worker cycles."""
+        if self.levels.num_levels == 0:
+            return None
+        if self._l0_needs_merge(write_mem_share) and self.l0.num_groups > 0:
+            ti = self.levels.l0_target_level()
+            target = self.levels.levels[ti]
+            l0_tables, _ = self.l0.pick_merge(target, greedy=self.l0_greedy)
+            if not l0_tables:
+                return None
+            runs = [(t.keys, t.vals) for t in l0_tables]
+            read = list(l0_tables)
+            lo = min(t.min_key for t in l0_tables)
+            hi = max(t.max_key for t in l0_tables)
+            if ti == 1:
+                mid = self.levels.overlapping_in(0, lo, hi)
+                runs += [(t.keys, t.vals) for t in mid]
+                read += mid
+                lo = min([lo] + [t.min_key for t in mid])
+                hi = max([hi] + [t.max_key for t in mid])
+            olds = self.levels.overlapping_in(ti, lo, hi)
+            runs += [(t.keys, t.vals) for t in olds]
+            read += olds
+            return self._merge_key(read), runs
+        over = self.levels.over_full()
+        if over:
+            i = over[0]
+        elif self.levels.deleting_l1 and self.levels.num_levels >= 2 \
+                and self.levels.levels[0]:
+            i = 0                            # low-priority L1 drain
+        else:
+            return None
+        victim = self.levels.greedy_victim(i)
+        olds = self.levels.overlapping_in(i + 1, victim.min_key,
+                                          victim.max_key)
+        runs = [(victim.keys, victim.vals)] + [(t.keys, t.vals)
+                                               for t in olds]
+        return self._merge_key([victim] + olds), runs
+
+    def merge_debt(self, write_mem_share: float) -> int:
+        """Pending maintenance units -- the scheduler's cross-tree ranking
+        signal. Zero iff ``maintenance_step`` would find no work (up to a
+        ``levels.adjust`` the step itself applies)."""
+        debt = 0
+        if isinstance(self.mem, PartitionedMemComponent):
+            debt += self.mem.merge_debt()
+        if self._l0_needs_merge(write_mem_share):
+            debt += self.l0.num_groups
+        debt += len(self.levels.over_full())
+        if self.levels.deleting_l1 and self.levels.num_levels >= 2 \
+                and self.levels.levels[0]:
+            debt += 1
+        return debt
+
     # -- reads ---------------------------------------------------------------
     def _bloom(self, sst):
         """Backend-built Bloom filter of one SSTable, memoized per sst_id
@@ -328,7 +429,13 @@ class LSMTree:
         owns the cached one; invalidated at the manifest edit sites)."""
         ent = self._bloom_cache.get(sst.sst_id)
         if ent is None or ent[0] != self.backend.name:
-            ent = (self.backend.name, self.backend.bloom_build(sst.keys))
+            w = self.workers
+            if w is not None and w.enabled:
+                fil = w.take(("bloom", self.backend.name, sst.sst_id),
+                             lambda: self.backend.bloom_build(sst.keys))
+            else:
+                fil = self.backend.bloom_build(sst.keys)
+            ent = (self.backend.name, fil)
             self._bloom_cache[sst.sst_id] = ent
         return ent[1]
 

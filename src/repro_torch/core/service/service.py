@@ -148,6 +148,25 @@ class StorageService:
     def open(cls, store_cfg: StoreConfig, **kw) -> "StorageService":
         return cls(LSMStore(store_cfg), **kw)
 
+    @classmethod
+    def recover(cls, store_cfg: StoreConfig, wal, manifest, *,
+                router=None, **kw) -> "StorageService":
+        """Crash-recovery front door: rebuild the data plane from the
+        durable (WAL, manifest) pair and open a fresh service over it, on
+        ``store_cfg.device``.
+
+        The recovered store is bit-identical to the crashed one (state and
+        write-path counters; see ``repro_torch.core.durability``).
+        Requests the old service answered with ``Deferred`` were never
+        executed and are therefore *provably absent* from the log --
+        admission control refuses a write before it reaches the WAL
+        append, so a deferred key appears in no ``WriteBatchRecord`` and
+        recovery cannot resurrect it. Replay statistics:
+        ``service.store.recovery_info``.
+        """
+        from ..durability.recovery import recover as _recover
+        return cls(_recover(store_cfg, wal, manifest, router=router), **kw)
+
     # -- schema / passthroughs ------------------------------------------------
     def create_tree(self, name: str, **kw):
         return self.store.create_tree(name, **kw)

@@ -61,9 +61,9 @@ class ShardedStore:
                 f"{router.n_shards}; pass one or make them match")
         self.cfg = cfg.validate()
         self.router = router
-        # ``wal``/``manifest`` adopt an existing durability plane; by
-        # default the arena creates a fresh one. The router spec is
-        # recorded in the manifest, so a replay of the ONE shared log
+        # ``wal``/``manifest`` adopt an existing durability plane (crash
+        # recovery); by default the arena creates a fresh one. The router
+        # spec is recorded in the manifest, so a replay of the ONE shared log
         # re-partitions keys through the identical deterministic router.
         self.arena = MemoryArena(cfg, wal=wal, manifest=manifest)
         self.arena.manifest.set_router(
@@ -76,6 +76,7 @@ class ShardedStore:
             [sh.store for sh in self.shards], self.arena,
             merge_budget=cfg.merge_budget)
         self._trees_view: dict | None = None    # cached flat observer view
+        self.recovery_info: dict | None = None  # set by durability.recover
 
     # -- geometry / shared-state views -----------------------------------------
     @property

@@ -1,13 +1,25 @@
 """Argument checks and launch counts shared by the kernel wrappers."""
 from __future__ import annotations
 
+import threading
+
 import torch
 
 # Kernel launches in this process, one plain integer per kernel. A wrapper
-# adds one where it launches its kernel and nowhere else, so a run that
-# zeroes these first shows which kernels its path went through.
+# adds one (``count``) where it launches its kernel and nowhere else, so a
+# run that zeroes these first shows which kernels its path went through.
 LAUNCHES = {"merge_pair": 0, "bloom_build": 0, "bloom_probe": 0,
             "probe_tier": 0, "probe_store": 0, "flash_attention": 0}
+_COUNT_LOCK = threading.Lock()
+
+
+def count(name: str, counts: dict = LAUNCHES) -> None:
+    """Add one to ``counts[name]`` under one lock. The maintenance workers
+    launch K1 and K2 from their own threads while the foreground launches
+    too, and ``counts[name] += 1`` alone is a read-modify-write that can
+    lose one."""
+    with _COUNT_LOCK:
+        counts[name] += 1
 
 
 def on_card(*tensors: torch.Tensor) -> bool:

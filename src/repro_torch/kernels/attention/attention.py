@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from .. import build
-from .._launch import LAUNCHES, on_card, stream_of
+from .._launch import count, on_card, stream_of
 
 NEG_INF = -2.0e38
 # Head dims the kernel is instantiated for: those of the configs (reduced
@@ -106,5 +106,5 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         *o.stride()[:3], int(causal), int(window), float(softcap),
         hd ** -0.5, int(q.dtype == torch.bfloat16), stream_of(q))
     build.check(rc, "flash_attention")
-    LAUNCHES["flash_attention"] += 1
+    count("flash_attention")
     return o

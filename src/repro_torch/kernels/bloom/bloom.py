@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from .. import build
-from .._launch import LAUNCHES, expect, on_card, stream_of
+from .._launch import count, expect, on_card, stream_of
 
 C1 = 0x9E3779B1
 C2 = 0x85EBCA77
@@ -132,7 +132,7 @@ def bloom_build(keys, n_slots: int, k_hashes: int):
                                      k_hashes, filt.data_ptr(),
                                      stream_of(keys))
     build.check(rc, "bloom_build")
-    LAUNCHES["bloom_build"] += 1
+    count("bloom_build")
     return filt
 
 
@@ -150,7 +150,7 @@ def bloom_probe(filt, keys, k_hashes: int):
                                      keys.data_ptr(), len(keys),
                                      out.data_ptr(), stream_of(keys))
     build.check(rc, "bloom_probe")
-    LAUNCHES["bloom_probe"] += 1
+    count("bloom_probe")
     return out
 
 
@@ -193,5 +193,5 @@ def bloom_probe_tier(filts, keys, tidx, k_hashes: int):
                                           tidx.data_ptr(), n,
                                           out.data_ptr(), stream_of(out))
     build.check(rc, "bloom_probe_tier")
-    LAUNCHES["bloom_probe"] += 1
+    count("bloom_probe")
     return out

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from .. import build
-from .._launch import LAUNCHES, expect, on_card, stream_of
+from .._launch import count, expect, on_card, stream_of
 from ..bloom.bloom import bloom_slots_plain
 
 META_ROWS = ("f_offs", "nslots", "offs", "lens", "starts", "ends")
@@ -235,7 +235,7 @@ def launch(store: bool, view, q: int, n: int, k_hashes: int, out: int,
         view.desc_ptr, k_hashes, q, n, out, stream_of(view.keys), q_host,
         out_host)
     build.check(rc, name)
-    LAUNCHES[name] += 1
+    count(name)
 
 
 def probe_tier(view, q, k_hashes: int, out=None):

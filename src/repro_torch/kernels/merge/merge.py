@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from .. import build
-from .._launch import LAUNCHES, expect, on_card, stream_of
+from .._launch import count, expect, on_card, stream_of
 
 # merge.cu's kTileThreads x kTileItems: the outputs of one merge-path block.
 TILE = 1024
@@ -134,8 +134,8 @@ def merge_runs(packed, k: int, n: int):
     rc = build.library().merge_runs(packed.data_ptr(), k, n, out.data_ptr(),
                                     stream_of(packed), ctypes.byref(route))
     build.check(rc, "merge_runs")
-    LAUNCHES["merge_pair"] += 1
-    ROUTES[ROUTE_NAMES[route.value]] += 1
+    count("merge_pair")
+    count(ROUTE_NAMES[route.value], ROUTES)
     return out
 
 

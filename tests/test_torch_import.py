@@ -1,6 +1,6 @@
-"""The port stands alone: importing every module of ``repro_torch`` loads
-neither jax nor any module of the reference package ``repro``, and no
-source file of the port (or ``chip_smoke.py``) imports them."""
+"""The port stands alone: every module of ``repro_torch`` imports with jax
+and the reference package ``repro`` blocked, loads neither, and no source
+file of the port (or ``chip_smoke.py``) imports them."""
 import json
 import os
 import re
@@ -16,7 +16,15 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 
 _PROBE = """
-import importlib, json, pkgutil, sys
+import importlib, importlib.abc, json, pkgutil, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "repro"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
 import repro_torch
 names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
@@ -53,6 +61,9 @@ def test_import_loads_no_jax_and_no_reference_module():
                 "repro_torch.core.shard.router",
                 "repro_torch.core.shard.sharded",
                 "repro_torch.core.engine.scheduler",
+                "repro_torch.core.engine.workers",
+                "repro_torch.core.durability.checkpoint",
+                "repro_torch.core.durability.recovery",
                 "repro_torch.runtime.hbm_arbiter"):
         assert mod in got["modules"]
 

@@ -247,7 +247,7 @@ def test_tier_probe_mixes_negative_and_positive_tables(monkeypatch):
 # --------------------------- device rules ------------------------------------
 @pytest.mark.parametrize("knob,value,slice_name", [
     ("storage_medium", "files", "files-medium slice"),
-    ("maintenance_workers", 2, "workers-and-recovery slice"),
+    ("maintenance_workers", -1, "maintenance_workers must be >= 0"),
 ])
 def test_rejected_knobs_name_their_slice(knob, value, slice_name):
     with pytest.raises(ValueError, match=slice_name):
