@@ -117,7 +117,30 @@
     beside the staged phase's. Then the replay stream with 0 and 4
     workers on the card and 4 on the CPU, all three identical. The three
     phases' seconds follow (``"recovery_workers_seconds"``).
-11. Serve phase: ``repro_torch.launch.serve.main`` at Yi-6B's full width
+11. Files phase (``"phase": "files"``), in a fresh temporary directory
+    removed at its end; every row names the card and the filesystem
+    (type, mount point). ``stream``: the staged phase's configuration on
+    ``storage_medium="files"`` (``per_batch``), its load and its first
+    ``FILES_SUBMITS`` of 256 mixed submits (the one cut, listed under
+    ``reduced``), every Get and Scan against the oracle; results, IOStats
+    (but fsyncs) and cache counts equal the staged phase's after that
+    submit, and so does the store's state (taken in the staged phase's
+    ``"mark"`` part, outside its timed window); K1, K2 and K5 launch, K3,
+    K4 and K6 do not. Prints submits/s, load s, fsyncs per 1k ops, commit
+    p50/p99, page bytes, WAL segments and SST files. ``reopen``: the
+    store closed, its plane reopened (``open_plane``) and recovered on the
+    card through ``StorageService.recover``, equal to the live store, then
+    held Gets and Scans. ``sigkill``: one child per ``FILES_KILLS`` point
+    (``tests/torch_crash_child.py``, all started together) runs the kill
+    workload on the card on files and SIGKILLs itself; each plane
+    recovered on the card equals the memory-medium oracle at its
+    boundary. ``policies``: the replay store (192 KB log cap) under
+    ``per_record``, ``per_batch`` and ``group`` on the card and on the
+    CPU: state, results and every byte of the plane after ``sync()``
+    equal (the checkpoints' fsync clock aside, ``plane_digest``), fsync
+    counts too under the first two. ``"files_seconds"`` times the four
+    parts against ``FILES_BOX_S``.
+12. Serve phase: ``repro_torch.launch.serve.main`` at Yi-6B's full width
    (32 layers, f32 params, bf16 compute, random weights from seed 0) with
    the reference's defaults: 64 requests in batches of 4, 48 prompt
    tokens, 16 generated. K6 must launch exactly 32 x 17 x 16 = 8,704
@@ -125,7 +148,7 @@
    tokens/s (CUDA events only, no profiler attached), memory, the pool's
    stats, the governor's records and the entry point's lines. A second,
    short run (8 requests) is profiled over 5 decode steps.
-12. Card-vs-CPU model phase: Yi-6B at full width but 2 layers, batch 4,
+13. Card-vs-CPU model phase: Yi-6B at full width but 2 layers, batch 4,
    prompt 48, 8 decode steps, the same seeded weights on the card and on
    the CPU, in f32 and bf16 compute: the largest and the RMS logits
    difference within ``MODEL_TOL`` at every step, greedy tokens equal
@@ -146,8 +169,12 @@ import hashlib
 import io
 import json
 import os
+import pickle
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -174,6 +201,11 @@ from repro_torch.core.engine.workers import (  # noqa: E402
 from repro_torch.core.engine.torch_backend import TorchBackend  # noqa: E402
 from repro_torch.core.lsm.sstable import (  # noqa: E402
     TOMBSTONE, partition_run, reset_sst_ids, sstable_from_run)
+from repro_torch.core.storage_io import (  # noqa: E402
+    FSYNC_POLICIES, open_plane)
+from repro_torch.core.storage_io.format import read_frames  # noqa: E402
+from repro_torch.core.storage_io.manifest_files import (  # noqa: E402
+    TAG_CHECKPOINT)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels._launch import (  # noqa: E402
@@ -1350,16 +1382,19 @@ def run_service(dev, *, n_keys: int, batch: int, n_mixed: int, gets: int,
                 puts: int, deletes: int, scans: int, n_tail: int = 0,
                 cfg_kw=None, profile_submits: int = 0, seed: int = 0,
                 shards: int | None = None, governor=None,
-                on_part=None) -> dict:
+                on_part=None, mark_at: int | None = None) -> dict:
     """Load ``n_keys`` distinct keys, run ``n_mixed`` mixed submits, then
     ``n_tail`` read-only submits of ``2 * gets`` zipfian Gets; every Get
     and Scan is held against a dict oracle. ``shards`` puts a
     ``ShardedStore`` of that many hash-routed shards under the service,
     and ``governor`` replaces its default governor. ``on_part(part, svc,
     oracle)`` is called at the end of the load, the mixed part and the
-    tail, with the kernels still counted (``oracle``: ``_Oracle``). Returns counts, wall
-    times, a digest of every Get and Scan result of the mixed part, and
-    the store's counters at the end of each part. The first
+    tail, with the kernels still counted (``oracle``: ``_Oracle``), and
+    with part ``"mark"`` after mixed submit ``mark_at`` (outside the
+    timed window). Returns counts, wall times, a digest of every Get and
+    Scan result of the mixed part, the store's counters at the end of
+    each part, and under ``"mark"`` the digest, IOStats and cache counts
+    after submit ``mark_at``. The first
     ``profile_submits`` submits of the mixed part and of the tail (CUDA
     only) run under the profiler, which gives the device's busy share."""
     rng = np.random.default_rng(seed)
@@ -1381,7 +1416,8 @@ def run_service(dev, *, n_keys: int, batch: int, n_mixed: int, gets: int,
             out = _drive(svc, prim, rng, n_keys=n_keys, batch=batch,
                          n_mixed=n_mixed, gets=gets, puts=puts,
                          deletes=deletes, scans=scans, n_tail=n_tail,
-                         profile_submits=profile_submits, on_part=on_part)
+                         profile_submits=profile_submits, on_part=on_part,
+                         mark_at=mark_at)
         finally:
             store.arena.workers.close()
     out["lookup_shapes"] = shape_summary(shapes)
@@ -1462,7 +1498,7 @@ class _Oracle:
 
 
 def _drive(svc, prim, rng, *, n_keys, batch, n_mixed, gets, puts, deletes,
-           scans, n_tail, profile_submits, on_part=None):
+           scans, n_tail, profile_submits, on_part=None, mark_at=None):
     trees = TREES
     for t in trees:
         svc.create_tree(t)
@@ -1483,6 +1519,7 @@ def _drive(svc, prim, rng, *, n_keys, batch, n_mixed, gets, puts, deletes,
     ids = {t: np.concatenate(ids[t]) for t in trees}
     zipf = {t: Zipf(len(ids[t]), rng) for t in trees}
     checked = 0
+    mark = None
     digest = hashlib.sha256()
     at_load = _state(svc, prim)
     oracle = _Oracle(ids, val, live, zipf)
@@ -1522,6 +1559,15 @@ def _drive(svc, prim, rng, *, n_keys, batch, n_mixed, gets, puts, deletes,
         live[tree][u] = True
         live[tree][d_ids] = False
         checked += gets + scans
+        if si + 1 == mark_at:
+            t_mark = time.perf_counter()
+            st = svc.store.disk
+            mark = {"submits": mark_at, "digest": digest.copy().hexdigest(),
+                    "iostats": vars(st.stats).copy(),
+                    "cache": [st.cache.hits, st.cache.misses]}
+            if on_part is not None:
+                on_part("mark", svc, oracle)
+            t0 += time.perf_counter() - t_mark   # outside the timed window
     mixed_s = time.perf_counter() - t0
     at_mixed = _state(svc, prim)
     if on_part is not None:
@@ -1563,6 +1609,8 @@ def _drive(svc, prim, rng, *, n_keys, batch, n_mixed, gets, puts, deletes,
                 [_key_of(np.flatnonzero(live[t])) for t in trees])),
             minlength=router.n_shards).tolist()
     out["primitives_total"] = at_tail["primitives"]
+    if mark_at is not None:
+        out["mark"] = mark
     if n_tail:
         out["tail_wall_s"] = tail_s
         out["tail"] = {**tail.report(), **_part(at_mixed, at_tail)}
@@ -1645,7 +1693,8 @@ def replay(dev, *, n_submits: int, seed: int = 1, shards=None, tuner=None,
     """One seeded op stream over ``keys`` keys through a small store on
     ``dev``: an ``LSMStore``, or a ``ShardedStore`` of ``shards``
     hash-routed shards; with ``tuner`` (``TunerConfig`` fields) under an
-    ``AdaptiveGovernor``."""
+    ``AdaptiveGovernor``. The result holds the store itself under
+    ``"store"``."""
     reset_sst_ids()
     cfg = small_config(dev, **cfg_kw)
     gov = AdaptiveGovernor(TunerConfig(**tuner)) if tuner else None
@@ -1665,13 +1714,14 @@ def replay(dev, *, n_submits: int, seed: int = 1, shards=None, tuner=None,
         n_ops += 100 + 1 + 200 + 20
     st = svc.store
     st.arena.workers.close()
-    return {"fingerprint": [fingerprint(x) for x in _stores(st)],
+    return {"store": st, "fingerprint": [fingerprint(x) for x in _stores(st)],
             "outputs": outs,
             "records": [vars(r) for r in gov.records] if gov else None,
             "iostats": vars(st.disk.stats).copy(),
             "wal": [encode_record(r) for r in st.wal.records()],
             "manifest": [vars(e) for e in st.manifest.edits],
             "pool": st.device_pool.stats(),
+            "truncated_to": st.wal.truncated_to,
             "flushes_log": svc.stats.flushes_log, "n_ops": n_ops}
 
 
@@ -2216,6 +2266,342 @@ def workers_phase(card: str, staged: dict, staged_end: dict,
         raise AssertionError(f"K1 launched more than once per merge_runs or "
                              f"ingest_run call in the workers phase: "
                              f"{out['k1']}")
+    return row
+
+
+# --------------------------- the files medium --------------------------------
+# The files phase drives the staged stream's load and its first
+# FILES_SUBMITS mixed submits (of 256) on the files medium: the one cut.
+FILES_SUBMITS = 64
+# (shards, boundary) of the kill workload at which a child kills itself.
+FILES_KILLS = ((1, 5), (1, 17), (4, 11), (4, 23))
+# The four parts' time box, in seconds of command time.
+FILES_BOX_S = 120.0
+# IOStats fields the memory medium never moves.
+FSYNC_FIELDS = ("fsyncs", "fsync_wait_us")
+
+
+def filesystem_of(path: str) -> dict:
+    """Type, mount point and device of the filesystem holding ``path``
+    (the longest mount point of ``/proc/mounts`` above it)."""
+    real = os.path.realpath(path)
+    best = {"type": None, "mount": "", "device": None}
+    with open("/proc/mounts") as f:
+        for line in f:
+            dev, mnt, fstype = line.split()[:3]
+            mnt = mnt.replace("\\040", " ")
+            inside = real == mnt or real.startswith(mnt.rstrip("/") + "/")
+            if inside and len(mnt) >= len(best["mount"]):
+                best = {"type": fstype, "mount": mnt, "device": dev}
+    return best
+
+
+def files_report(store, n_ops: int) -> dict:
+    """The files medium's counters of ``store``: fsyncs (all and the
+    WAL's), per 1k operations, the foreground fsync wait, commit latency
+    (p50/p99 us), WAL segments, page bytes written and read, SST files."""
+    st, wal, ps = store.disk.stats, store.wal, store.disk.page_store
+    h = wal.commit_hist
+    return {"fsyncs": st.fsyncs, "wal_fsyncs": wal.fsyncs,
+            "fsyncs_per_kop": 1e3 * st.fsyncs / n_ops,
+            "fsync_wait_us": st.fsync_wait_us, "commits": h.count,
+            "commit_p50_us": h.quantile(0.5) if h.count else None,
+            "commit_p99_us": h.quantile(0.99) if h.count else None,
+            "wal_segments": wal.segment_count,
+            "page_bytes_written": ps.bytes_written,
+            "page_bytes_read": ps.bytes_read, "sst_files": len(ps.ids())}
+
+
+def plane_digest(root: str) -> dict:
+    """sha256 of every file of the plane under ``root``; the MANIFEST's
+    CHECKPOINT frames with their one clock reading,
+    ``iostats["fsync_wait_us"]``, set to 0 (the frames re-pickled)."""
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in sorted(names):
+            p = os.path.join(d, n)
+            with open(p, "rb") as f:
+                out[os.path.relpath(p, root)] = hashlib.sha256(
+                    f.read()).hexdigest()
+    h = hashlib.sha256()
+    for tag, payload in read_frames(os.path.join(root, "MANIFEST"),
+                                    allow_torn_tail=False):
+        if tag == TAG_CHECKPOINT:
+            ck = pickle.loads(payload)
+            ck["iostats"] = {**ck["iostats"], "fsync_wait_us": 0.0}
+            payload = pickle.dumps(ck)
+        h.update(tag.to_bytes(8, "little", signed=True))
+        h.update(hashlib.sha256(payload).digest())
+    out["MANIFEST"] = h.hexdigest()
+    return out
+
+
+def _unfsynced(iostats: dict) -> dict:
+    return {k: v for k, v in iostats.items() if k not in FSYNC_FIELDS}
+
+
+def files_stream(card: str, fs: dict, root: str, staged: dict,
+                 staged_mark: dict, service_kw: dict, dev="cuda") -> tuple:
+    """The staged phase's configuration on the files medium under
+    ``per_batch``: the 2**20-key load and the first ``FILES_SUBMITS``
+    mixed submits, every Get and Scan against the oracle; the results,
+    IOStats (but fsyncs) and cache counts equal the staged phase's at that
+    submit (``staged["mark"]``), and so does the store's ``durable``
+    state (``staged_mark``). K1, K2 and K5 launch; K3, K4 and K6 do not.
+    Returns what the reopen needs: the store, its state and the oracle."""
+    keep: dict = {}
+
+    def on_part(part, svc, oracle):
+        if part == "mixed":
+            keep.update(store=svc.store, live=durable(svc.store),
+                        oracle=oracle.frozen(7))
+
+    t0 = time.perf_counter()
+    reset_sst_ids()
+    zero_counts()
+    out = run_service(dev, cfg_kw={
+        "max_log_bytes": SERVICE_MAX_LOG_BYTES, "storage_medium": "files",
+        "storage_dir": root, "fsync_policy": "per_batch"},
+        on_part=on_part, **{**service_kw, "n_mixed": FILES_SUBMITS})
+    _sync(dev)
+    launches = out["launches"] = dict(LAUNCHES)
+    per_submit = sum(service_kw[k] for k in ("gets", "puts", "deletes",
+                                             "scans"))
+    n_ops = service_kw["n_keys"] + FILES_SUBMITS * per_submit
+    row = {"phase": "files", "part": "stream", "card": card,
+           "filesystem": fs, "fsync_policy": "per_batch",
+           "reduced": {"mixed_submits": [FILES_SUBMITS,
+                                         service_kw["n_mixed"]]},
+           "n_ops": n_ops, "files": files_report(keep["store"], n_ops),
+           "submits_per_s": {"files": out["mixed"]["submits_per_s"],
+                             "staged_256": staged["mixed"]["submits_per_s"]},
+           "load_s": {"files": out["load_s"], "staged": staged["load_s"]},
+           "mixed_wall_s": out["mixed_wall_s"],
+           "device_busy_share": out["mixed"]["device_busy_share"],
+           "launches": launches, "k1": k1_per_call(out),
+           "primitives_total": out["primitives_total"],
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    want = staged["mark"]
+    for what, x, y in (
+            ("results", out["mixed"]["digest"], want["digest"]),
+            ("IOStats but fsyncs", _unfsynced(out["mixed"]["iostats"]),
+             _unfsynced(want["iostats"])),
+            ("cache hits and misses", out["mixed"]["cache"], want["cache"])):
+        if x != y:
+            raise AssertionError(f"files stream differs from the memory "
+                                 f"medium at submit {FILES_SUBMITS} in {what}")
+    same_durable(keep["live"], staged_mark,
+                 f"files stream against the memory medium at submit "
+                 f"{FILES_SUBMITS}")
+    if not row["files"]["fsyncs"] > 0:
+        raise AssertionError("the files stream made no fsync")
+    if dev != "cpu":
+        missing = [k for k in ("merge_pair", "bloom_build", "bloom_probe")
+                   if launches[k] <= 0]
+        stray = [k for k in ("probe_tier", "probe_store", "flash_attention")
+                 if launches[k] != 0]
+        if missing or stray:
+            raise AssertionError(f"files stream launches: never {missing}, "
+                                 f"unexpected {stray}")
+    return keep
+
+
+def files_reopen(card: str, fs: dict, keep: dict, gets: int,
+                 dev="cuda") -> dict:
+    """Close the stream's store, reopen its plane (``open_plane``, as a
+    restarted process would: sst ids from 0) and recover it through
+    ``StorageService.recover`` (``recover_full_width``: equal to the live
+    store, then held Gets and Scans against the oracle)."""
+    t0 = time.perf_counter()
+    store = keep.pop("store")
+    cfg = store.cfg
+    store.wal.close()
+    store.manifest.close()
+    del store
+    reset_sst_ids()
+    t1 = time.perf_counter()
+    wal, manifest = open_plane(cfg)
+    open_s = time.perf_counter() - t1
+    rec = recover_full_width("files reopen", {
+        "wal": wal, "manifest": manifest, "cfg": cfg, "live": keep["live"],
+        "oracle": keep["oracle"]}, gets, dev)
+    row = {"phase": "files", "part": "reopen", "card": card,
+           "filesystem": fs, "open_plane_s": open_s, **rec,
+           "gc_ssts": rec["info"]["gc_ssts"],
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
+def kill_snapshot(store) -> dict:
+    """What a recovery after a kill must reproduce: every shard's
+    fingerprint, ``RECOVERY_EXACT_COUNTERS`` and the log position."""
+    return {"fp": [fingerprint(s) for s in _stores(store)],
+            "counters": [{k: getattr(s.disk.stats, k)
+                          for k in RECOVERY_EXACT_COUNTERS}
+                         for s in _stores(store)],
+            "log_pos": store.log_pos}
+
+
+def files_sigkill(card: str, fs: dict, base: str, dev="cuda") -> dict:
+    """The port's kill workload (``tests/torch_kill_workload.py``) in one
+    child per ``FILES_KILLS`` point, all started together, each on
+    ``dev`` on the files medium, killing itself with SIGKILL at its
+    boundary; meanwhile the memory-medium oracle runs here over 1 and 4
+    shards. Each plane is recovered here on ``dev`` and must equal the
+    oracle at its boundary."""
+    t0 = time.perf_counter()
+    tests = os.path.join(ROOT, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    from torch_kill_workload import drive, kill_config
+
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [os.path.join(ROOT, "src"), tests])}
+    kids = []
+    for shards, at in FILES_KILLS:
+        root = os.path.join(base, f"kill-{shards}-{at}")
+        argv = [sys.executable, os.path.join(tests, "torch_crash_child.py"),
+                "--root", root, "--shards", str(shards), "--kill-at",
+                str(at), "--device", dev]
+        kids.append((shards, at, root, subprocess.Popen(
+            argv, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)))
+    try:
+        oracles = {}
+        for shards in sorted({s for s, _ in FILES_KILLS}):
+            reset_sst_ids()
+            store = ShardedStore(kill_config(shards, medium="memory",
+                                             device=dev), shards=shards)
+            snaps = []
+            drive(store, lambda i: snaps.append(kill_snapshot(store)))
+            oracles[shards] = snaps
+        ended = [(shards, at, root, *p.communicate(timeout=300),
+                  p.returncode) for shards, at, root, p in kids]
+    finally:
+        for *_, p in kids:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    children_s = time.perf_counter() - t0
+    zero_counts()
+    points = []
+    for shards, at, root, _, err, rc in ended:
+        if rc != -signal.SIGKILL:
+            raise AssertionError(f"kill child ({shards} shards, boundary "
+                                 f"{at}) ended with {rc}, not SIGKILL:\n"
+                                 f"{err[-2000:]}")
+        t1 = time.perf_counter()
+        reset_sst_ids()
+        cfg = kill_config(shards, medium="files", root=root, device=dev)
+        rec = recover(cfg, *open_plane(cfg))
+        _sync(dev)
+        secs = time.perf_counter() - t1
+        if kill_snapshot(rec) != oracles[shards][at]:
+            raise AssertionError(f"recovery after the kill at boundary {at} "
+                                 f"over {shards} shard(s) differs from the "
+                                 f"memory-medium oracle")
+        points.append({"shards": shards, "boundary": at,
+                       "recovery_s": secs, "info": rec.recovery_info,
+                       "identical": True})
+    row = {"phase": "files", "part": "sigkill", "card": card,
+           "filesystem": fs, "points": points, "children_s": children_s,
+           "launches": dict(LAUNCHES), "seconds": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
+def files_policies(card: str, fs: dict, base: str, n_submits: int = 190,
+                   devs=("cuda", "cpu")) -> dict:
+    """The card-vs-CPU replay's small store (192 KB log cap: log-triggered
+    flushes, checkpoints, truncation) on the files medium under each
+    fsync policy, on the card and on the CPU (``group`` with a 3600 s
+    wait, so its groups close on bytes alone). Every result, the
+    fingerprint, IOStats but ``fsync_wait_us``, the WAL's records, the
+    manifest's edits and every byte of the plane after ``sync()`` (the
+    checkpoints' clock reading aside, see ``plane_digest``) are equal;
+    fsync counts too under ``per_record`` and ``per_batch``."""
+    t0 = time.perf_counter()
+    out = {}
+    for policy in FSYNC_POLICIES:
+        runs = {}
+        for i, dev in enumerate(devs):
+            root = os.path.join(base, f"{policy}-{i}-{dev}")
+            r = replay(dev, n_submits=n_submits, storage_medium="files",
+                       storage_dir=root, fsync_policy=policy,
+                       group_commit_max_wait_s=3600.0)
+            store = r.pop("store")
+            store.wal.sync()
+            r["files"] = files_report(store, r["n_ops"])
+            r["plane"] = plane_digest(root)
+            r["checkpoints"] = sum(
+                tag == TAG_CHECKPOINT for tag, _ in read_frames(
+                    os.path.join(root, "MANIFEST"), allow_torn_tail=False))
+            r["iostats"] = {k: v for k, v in r["iostats"].items()
+                            if k not in (FSYNC_FIELDS if policy == "group"
+                                         else FSYNC_FIELDS[1:])}
+            runs[i] = r
+        a, b = runs[0], runs[1]
+        compare_replays(a, b)
+        if a["plane"] != b["plane"]:
+            bad = sorted(k for k in a["plane"]
+                         if a["plane"][k] != b["plane"].get(k))
+            raise AssertionError(f"{policy}: card and CPU planes differ in "
+                                 f"{bad or 'their file lists'}")
+        if policy != "group" and \
+                [a["files"][k] for k in ("fsyncs", "wal_fsyncs")] != \
+                [b["files"][k] for k in ("fsyncs", "wal_fsyncs")]:
+            raise AssertionError(f"{policy}: card and CPU fsync counts "
+                                 f"differ")
+        if not (a["flushes_log"] > 0 and a["checkpoints"] > 0
+                and a["truncated_to"] > 0):
+            raise AssertionError(f"{policy}: the replay ran no log-triggered "
+                                 f"flush, checkpoint or truncation")
+        out[policy] = {d: runs[i]["files"] for i, d in enumerate(devs)}
+        out[policy].update(plane_files=len(a["plane"]),
+                           checkpoint_frames=a["checkpoints"],
+                           flushes_log=a["flushes_log"],
+                           truncated_to=a["truncated_to"],
+                           n_ops=a["n_ops"], identical=True)
+    row = {"phase": "files", "part": "policies", "card": card,
+           "filesystem": fs, "n_submits": n_submits,
+           "group_commit_max_wait_s": 3600.0, "policies": out,
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
+def files_phase(card: str, staged: dict, staged_mark: dict,
+                service_kw: dict, dev="cuda", policies_kw=None) -> dict:
+    """The files medium on the card in four parts (stream, reopen,
+    sigkill, policies), in a fresh temporary directory removed at the
+    end; then the parts' seconds against ``FILES_BOX_S``."""
+    base = tempfile.mkdtemp(prefix="repro_torch_files_")
+    fs = filesystem_of(base)
+    seconds = {}
+    try:
+        t0 = time.perf_counter()
+        keep = files_stream(card, fs, os.path.join(base, "stream"),
+                            staged, staged_mark, service_kw, dev)
+        seconds["stream"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        files_reopen(card, fs, keep, service_kw["gets"], dev)
+        del keep
+        seconds["reopen"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        files_sigkill(card, fs, base, dev)
+        seconds["sigkill"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        files_policies(card, fs, base, **(policies_kw or {}))
+        seconds["policies"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    total = sum(seconds.values())
+    row = {"phase": "files_seconds", "card": card, "filesystem": fs,
+           **seconds, "total": total, "box_s": FILES_BOX_S,
+           "within_box": total <= FILES_BOX_S}
+    emit(row)
     return row
 
 
@@ -2799,12 +3185,22 @@ def main() -> int:
                 points[f"{tag} {part}"] = crash_point(svc.store, oracle)
         return on_part
 
+    # The staged store's durable state after submit FILES_SUBMITS, which
+    # the files phase's stream must reach (taken outside the timed window).
+    staged_mark: dict = {}
+    keep_staged = keep_points("staged", ("load", "mixed"))
+
+    def staged_on_part(part, svc, oracle):
+        if part == "mark":
+            staged_mark.update(durable(svc.store))
+        keep_staged(part, svc, oracle)
+
     t0 = time.perf_counter()
     reset_sst_ids()
     zero_counts()
     staged = run_service("cuda", cfg_kw={
         "max_log_bytes": SERVICE_MAX_LOG_BYTES},
-        on_part=keep_points("staged", ("load", "mixed")), **service_kw)
+        on_part=staged_on_part, mark_at=FILES_SUBMITS, **service_kw)
     staged_end = points["staged mixed"]["live"]
     torch.cuda.synchronize()
     staged["launches"] = dict(LAUNCHES)
@@ -2924,6 +3320,11 @@ def main() -> int:
     workers_phase(card, staged, staged_end, service_kw)
     seconds["workers"] = time.perf_counter() - t0
     emit({"phase": "recovery_workers_seconds", **seconds})
+
+    # The files medium: the staged stream's load and first FILES_SUBMITS
+    # submits on files, its reopen, SIGKILLed children of the kill
+    # workload, and the replay store under each fsync policy.
+    files_phase(card, staged, staged_mark, service_kw)
 
     # Serve phase: the serving entry point at Yi-6B's full width with the
     # reference's defaults (64 requests, batch 4, prompt 48, 16 tokens);

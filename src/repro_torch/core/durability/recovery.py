@@ -131,8 +131,7 @@ def recover(cfg, wal, manifest, *, router=None):
         "replayed_bytes": replayed_bytes,
         "from_checkpoint": ck is not None,
     }
-    # Files medium (a later slice of the port; the memory medium has no
-    # page store): replayed flushes re-wrote their tables under fresh
+    # Files medium: replayed flushes re-wrote their tables under fresh
     # sst_ids, so the crashed run's files are orphans now -- reconcile
     # the page directory against the converged live set (checkpoint-
     # pinned files are spared inside gc).

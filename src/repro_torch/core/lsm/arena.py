@@ -27,6 +27,7 @@ from __future__ import annotations
 from ..durability.manifest import Manifest
 from ..durability.wal import WriteAheadLog
 from ..engine.workers import MaintenanceWorkerPool
+from ..storage_io import create_plane
 from ..tuner.simcache import GhostCache
 from .cache import ClockCache, Disk
 from .device_pool import DevicePagePool
@@ -46,13 +47,27 @@ class MemoryArena:
                 - cfg.sim_cache_bytes) // cfg.page_bytes)
         self.cache = ClockCache(cache_pages, on_evict=self.ghost.add_evicted)
         self.disk = Disk(cfg.page_bytes, self.cache, self.ghost)
-        # Durability plane on the memory medium: adopted or fresh. The
-        # manifest's identity guardrail rejects a config that contradicts
-        # the one the durable state was written under.
+        # Durability plane: adopted (recovery) or fresh. The manifest's
+        # identity guardrail rejects a config that contradicts the one the
+        # durable state was written under. The StorageMedium seam lives
+        # here: "memory" builds the RAM-backed plane; "files" builds the
+        # physical plane under cfg.storage_dir (core/storage_io), whose
+        # wal/manifest subclass the in-memory ones -- everything above
+        # this line is medium-agnostic.
+        if wal is None and manifest is None \
+                and cfg.storage_medium == "files":
+            wal, manifest = create_plane(cfg)
         self.wal = wal if wal is not None else WriteAheadLog()
         self.manifest = manifest if manifest is not None else Manifest()
         self.manifest.bind(cfg)
+        # Physical plumbing (no-ops on the memory medium): cache misses /
+        # flush writes reach the page store, fsync counts reach IOStats.
+        page_store = getattr(self.manifest, "pages", None)
+        if page_store is not None:
+            self.disk.page_store = page_store
         self.wal.bind_stats(self.disk.stats)
+        if hasattr(self.manifest, "bind_stats"):
+            self.manifest.bind_stats(self.disk.stats)
         self.members: list = []             # stores drawing from this arena
         # Device page pool (device residency for fused reads): created by
         # the first member store to register -- the pool needs the store's

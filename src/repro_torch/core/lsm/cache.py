@@ -182,6 +182,9 @@ class Disk:
     stats: IOStats = field(default_factory=IOStats)
     device_pool: object = None          # DevicePagePool (optional): device
                                         # residency for fused tier lookups
+    page_store: object = None           # storage_io.FilePageStore (optional):
+                                        # cache misses become real preads,
+                                        # flush/merge writes become real files
 
     def query_pin(self, sst_id: int, page_index: int) -> None:
         self.stats.query_pins += 1
@@ -189,6 +192,8 @@ class Disk:
             self.stats.pages_query_read += 1
             if self.ghost is not None:
                 self.ghost.on_disk_read((sst_id, page_index), merge=False)
+            if self.page_store is not None:
+                self.page_store.read_page(sst_id, page_index)
 
     def query_pin_many(self, sst_id: int, page_indices) -> None:
         """Batched query pins: one pin (hit-or-miss accounted) per entry.
@@ -248,6 +253,8 @@ class Disk:
             self.stats.pages_query_read += 1
             if self.ghost is not None:
                 self.ghost.on_disk_read(pid, merge=False)
+            if self.page_store is not None:
+                self.page_store.read_page(pid[0], pid[1])
         cache.hits += hits
 
     def merge_pin(self, sst_id: int, page_index: int) -> None:
@@ -256,6 +263,8 @@ class Disk:
             self.stats.pages_merge_read += 1
             if self.ghost is not None:
                 self.ghost.on_disk_read((sst_id, page_index), merge=True)
+            if self.page_store is not None:
+                self.page_store.read_page(sst_id, page_index)
 
     def merge_read_sst(self, sst) -> None:
         for p in range(sst.num_pages):
@@ -270,13 +279,15 @@ class Disk:
         for p in range(sst.num_pages):
             self.cache.insert((sst.sst_id, p))
         self.cache.insert((sst.sst_id, -1))  # bloom pages pinned as one unit
+        if self.page_store is not None:
+            self.page_store.write(sst)
 
     def ensure_sst(self, sst) -> None:
         """Make a restored table's file exist without touching counters
         (checkpoint restore re-keys tables to fresh sst_ids; the write
-        was already accounted when the original id flushed). The memory
-        medium keeps no files, so there is nothing to make; the files
-        medium's page store will do it here."""
+        was already accounted when the original id flushed)."""
+        if self.page_store is not None:
+            self.page_store.ensure(sst)
 
     def drop_sst(self, sst) -> None:
         pids = [(sst.sst_id, p) for p in range(-1, sst.num_pages)]
@@ -285,3 +296,5 @@ class Disk:
             self.ghost.invalidate_many(pids)
         if self.device_pool is not None:
             self.device_pool.drop_sst(sst)
+        if self.page_store is not None:
+            self.page_store.mark_dropped(sst.sst_id)

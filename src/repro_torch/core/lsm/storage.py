@@ -23,6 +23,7 @@ import numpy as np
 from ..engine import available_backends, get_backend
 from ..engine.scheduler import MaintenanceScheduler
 from ..engine.torch_backend import resolve_device
+from ..storage_io.wal_files import ASYNC_FSYNC_REFUSED, FSYNC_POLICIES
 from .arena import MemoryArena
 from .baselines import AccordionMemComponent, BTreeMemComponent
 from .memtable import PartitionedMemComponent
@@ -150,10 +151,27 @@ class StoreConfig:
     # logged segment boundaries, so store state is bit-identical for ANY
     # worker count; 0 (default) creates no threads at all.
     maintenance_workers: int = 0
-    # Physical storage plane: only "memory" (WAL and SSTables as
-    # byte-accounted RAM buffers; nothing is fsynced) until the
-    # files-medium slice lands with its fsync and group-commit knobs.
+    # Physical storage plane (core/storage_io): "memory" keeps the WAL /
+    # SSTables as byte-accounted RAM buffers (nothing is fsynced); "files"
+    # backs them with real files under storage_dir -- segmented WAL, one
+    # file per SSTable, manifest frame log -- with process-kill crash
+    # safety, byte-compatible with the reference's files.
     storage_medium: str = "memory"
+    storage_dir: str | None = None
+    # Commit durability policy on the files medium: "per_record" fsyncs
+    # every WAL append, "per_batch" fsyncs at every commit point (store
+    # batch / scheduler tick), "group" batches concurrent commits until
+    # group_commit_bytes of frames are pending or the oldest commit has
+    # waited group_commit_max_wait_s (leader-follower: one fsync serves
+    # the whole queue). Ignored (no fsyncs at all) on the memory medium.
+    fsync_policy: str = "per_batch"
+    wal_segment_bytes: int = 1 << 20
+    group_commit_bytes: int = 64 << 10
+    group_commit_max_wait_s: float = 1e-3
+    # Async group commit (a durability worker thread owning the fsyncs):
+    # the reference's knob, refused until the port's async-commit slice;
+    # False, the default, is the only accepted value.
+    wal_async_fsync: bool = False
     time_model: TimeModel = field(default_factory=TimeModel)
 
     def validate(self):
@@ -224,15 +242,39 @@ class StoreConfig:
             raise ValueError(
                 f"maintenance_workers must be >= 0 (0 runs all maintenance "
                 f"inline), got {self.maintenance_workers}")
+        if self.wal_async_fsync and self.fsync_policy != "group":
+            raise ValueError(
+                f"wal_async_fsync requires fsync_policy='group' (the "
+                f"durability worker batches group commits), got "
+                f"fsync_policy={self.fsync_policy!r}")
+        if self.wal_async_fsync:
+            raise ValueError(ASYNC_FSYNC_REFUSED)
         if self.storage_medium not in STORAGE_MEDIA:
             raise ValueError(
                 f"unknown storage_medium {self.storage_medium!r}; "
                 f"expected one of {STORAGE_MEDIA}")
-        if self.storage_medium == "files":
+        if self.storage_medium == "files" and not self.storage_dir:
             raise ValueError(
-                "storage_medium='files' is not supported: the files medium "
-                "comes with the files-medium slice of the port; use "
-                "'memory'")
+                f"storage_dir must name a directory when storage_medium="
+                f"'files', got {self.storage_dir!r}")
+        if self.fsync_policy not in FSYNC_POLICIES:
+            raise ValueError(
+                f"unknown fsync_policy {self.fsync_policy!r}; expected "
+                f"one of {FSYNC_POLICIES}")
+        if self.wal_segment_bytes <= 0:
+            raise ValueError(
+                f"wal_segment_bytes must be positive (the fixed WAL "
+                f"segment-file size), got {self.wal_segment_bytes}")
+        if self.group_commit_bytes <= 0:
+            raise ValueError(
+                f"group_commit_bytes must be positive (pending WAL bytes "
+                f"that trigger a group fsync), got "
+                f"{self.group_commit_bytes}")
+        if self.group_commit_max_wait_s <= 0:
+            raise ValueError(
+                f"group_commit_max_wait_s must be positive (max age of a "
+                f"queued commit before the group fsyncs), got "
+                f"{self.group_commit_max_wait_s}")
         if self.write_memory_bytes + self.sim_cache_bytes \
                 > self.total_memory_bytes:
             raise ValueError(

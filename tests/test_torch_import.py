@@ -64,7 +64,12 @@ def test_import_loads_no_jax_and_no_reference_module():
                 "repro_torch.core.engine.workers",
                 "repro_torch.core.durability.checkpoint",
                 "repro_torch.core.durability.recovery",
-                "repro_torch.runtime.hbm_arbiter"):
+                "repro_torch.runtime.hbm_arbiter",
+                "repro_torch.core.storage_io.format",
+                "repro_torch.core.storage_io.wal_files",
+                "repro_torch.core.storage_io.pages",
+                "repro_torch.core.storage_io.manifest_files",
+                "repro_torch.core.storage_io.plane"):
         assert mod in got["modules"]
 
 

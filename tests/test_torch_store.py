@@ -5,6 +5,8 @@ backend and through ``repro_torch.core.StorageService`` on the torch
 backend with ``device="cpu"``. Store structure, every result, IOStats,
 WAL record bytes and manifest edits must be bit-identical. Also checks
 the port's device rules and the knobs it rejects."""
+import os
+
 import numpy as np
 import pytest
 
@@ -245,13 +247,26 @@ def test_tier_probe_mixes_negative_and_positive_tables(monkeypatch):
 
 
 # --------------------------- device rules ------------------------------------
-@pytest.mark.parametrize("knob,value,slice_name", [
-    ("storage_medium", "files", "files-medium slice"),
-    ("maintenance_workers", -1, "maintenance_workers must be >= 0"),
+@pytest.mark.parametrize("knobs,slice_name", [
+    ({"wal_async_fsync": True, "fsync_policy": "group"},
+     "async-commit slice"),
+    ({"maintenance_workers": -1}, "maintenance_workers must be >= 0"),
 ])
-def test_rejected_knobs_name_their_slice(knob, value, slice_name):
+def test_rejected_knobs_name_their_slice(knobs, slice_name):
     with pytest.raises(ValueError, match=slice_name):
-        port.StoreConfig(device="cpu", **{knob: value}).validate()
+        port.StoreConfig(device="cpu", **knobs).validate()
+
+
+def test_files_medium_is_accepted(tmp_path):
+    """The files medium opens a store whose writes reach real files."""
+    cfg = port.StoreConfig(device="cpu", storage_medium="files",
+                           storage_dir=str(tmp_path))
+    svc = port.StorageService.open(cfg.validate())
+    svc.create_tree("t")
+    svc.submit_strict([port.Put("t", np.arange(8))])
+    assert svc.store.disk.page_store is not None
+    assert svc.stats.fsyncs > 0
+    assert sorted(os.listdir(tmp_path)) == ["MANIFEST", "sst", "wal"]
 
 
 def test_cuda_without_a_gpu_raises(monkeypatch):
