@@ -29,7 +29,8 @@
    2048-key ingest, and of K4's and K3's engine calls at their timed
    shapes (``host_split``). Then K6
    (flash_attention) against its plain version in bf16 (2e-2) and f32
-   (1e-5) at the serving path's prefill and decode shapes (Yi-6B heads),
+   (1e-5) at the serving path's prefill and decode shapes (Yi-6B heads,
+   and Granite-3.0-1B-A400M's at prefill and the last decode position),
    a 4096-token Yi-6B prefill and a Gemma-2-27B local layer (8192 tokens,
    window 4096, softcap 50), timed beside SDPA with the same mask; in
    bf16 also the relative RMS difference (``ATTN_REL_RMS``), and at the
@@ -148,7 +149,17 @@
    tokens/s (CUDA events only, no profiler attached), memory, the pool's
    stats, the governor's records and the entry point's lines. A second,
    short run (8 requests) is profiled over 5 decode steps.
-13. Card-vs-CPU model phase: Yi-6B at full width but 2 layers, batch 4,
+13. MoE phases (``"serve_moe"``, ``"model_moe"``, then ``"moe_seconds"``
+   against ``MOE_BOX_S``): the serve entry point at Granite-3.0-1B-A400M's
+   full width (24 layers, 32 experts, top-8; the same defaults), K6
+   exactly 24 x 17 x 16 = 6,528 times at head dim 64 and GQA 2, every
+   logits tensor finite; then ``compare_model`` on Granite at all
+   ``MOE_MODEL_LAYERS`` = 24 layers, as in 14, with each MoE call's
+   router logits held to ``MODEL_TOL`` and its top-k experts on the card
+   to the CPU's (``ROUTE_MARGIN``, ``route_agreement``): per step the
+   share of agreed (token, expert) choices, the router logits'
+   difference, the flips and their gaps, and the pairs past capacity.
+14. Card-vs-CPU model phase: Yi-6B at full width but 2 layers, batch 4,
    prompt 48, 8 decode steps, the same seeded weights on the card and on
    the CPU, in f32 and bf16 compute: the largest and the RMS logits
    difference within ``MODEL_TOL`` at every step, greedy tokens equal
@@ -157,7 +168,8 @@
 
 Prints JSON lines; the ``kernels`` line lists each kernel with its launch
 count on its main path (K1, K2, K5: the staged service phase; K3 and K4:
-the pool phase; K6: the serve phase), its time, its bound and its
+the pool phase; K6: the serve phase, and ``launches_serve_moe`` the
+serve_moe phase), its time, its bound and its
 yardsticks (K5's at its tier form's timed shape). The last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU, and when
 any phase fails.
@@ -216,6 +228,7 @@ from repro_torch.kernels.lookup import lookup as lookup_k  # noqa: E402
 from repro_torch.kernels.merge import merge as merge_k  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import attention as port_attention  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import build_model, init_params  # noqa: E402
 from repro_torch.models.params import leaves, tree_map  # noqa: E402
 from repro_torch.models.transformer import CausalLM  # noqa: E402
@@ -2619,13 +2632,20 @@ ATTN_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 # cases): tools/k6_faults.py on an H100, PERF.md section 6.
 ATTN_REL_RMS = 5e-3
 YI_HEADS = {"h": 32, "kv": 4, "hd": 128}
+GRANITE_HEADS = {"h": 16, "kv": 8, "hd": 64}
 # The serving path's prefill (48 prompt tokens over its cache of 64 rows)
-# and decode (one query over rows 0..pos of that cache), a 4096-token
-# Yi-6B prefill, and a Gemma-2-27B local layer at 8192 tokens.
+# and decode (one query over rows 0..pos of that cache) at Yi-6B's heads
+# and at Granite-3.0-1B-A400M's (prefill, and decode at the last
+# position), a 4096-token Yi-6B prefill, and a Gemma-2-27B local layer at
+# 8192 tokens.
 ATTN_CASES = [
     ("serve_prefill", dict(b=4, sq=48, sk=64, causal=True, **YI_HEADS)),
     *[(f"serve_decode_pos{p}", dict(b=4, sq=1, sk=p + 1, causal=False,
                                     **YI_HEADS)) for p in (0, 47, 63)],
+    ("granite_serve_prefill", dict(b=4, sq=48, sk=64, causal=True,
+                                   **GRANITE_HEADS)),
+    ("granite_serve_decode_pos63", dict(b=4, sq=1, sk=64, causal=False,
+                                        **GRANITE_HEADS)),
     ("yi_prefill_4096", dict(b=1, sq=4096, sk=4096, causal=True, **YI_HEADS)),
     ("gemma2_local_8192", dict(b=1, sq=8192, sk=8192, causal=True, h=32,
                                kv=16, hd=128, window=4096, softcap=50.0)),
@@ -3050,7 +3070,7 @@ def _diff(ref: torch.Tensor, got: torch.Tensor) -> dict:
 
 def compare_model(cfg, *, batch: int, prompt: int, steps: int,
                   seed: int = 0, dev: str = "cuda") -> list:
-    """``cfg`` (Yi-6B at full width, fewer layers): the same weights from
+    """``cfg`` (a model at full width, fewer layers): the same weights from
     one seeded generator through the port on the CPU and on ``dev``, in f32
     and bf16 compute, the card fed the CPU's greedy tokens. Then each of
     ``MODEL_FAULTS`` in place of K6 on the card, fed the same tokens.
@@ -3120,6 +3140,267 @@ def check_model(runs) -> None:
             if dname in MODEL_FAULTS[name][1] and not _breaks(steps, tol):
                 raise AssertionError(f"model {dname}: the fault {name} stays "
                                      f"inside the limits {tol}")
+
+
+# --------------------------- MoE: Granite serve and model phases -------------
+MOE_ARCH = "granite-moe-1b-a400m"
+# Depth of the Granite card-vs-CPU model phase: all of Granite's 24 layers
+# (the CPU side takes under half a minute on an H100 host).
+MOE_MODEL_LAYERS = 24
+# The routing rule of that phase. On the card's sound run, every MoE call
+# is held to the CPU's same call. Its router logits [T, E] are held to
+# MODEL_TOL, the limits of the model's output logits (both have an RMS
+# near 1.0). A token whose set of top-k experts differs is a flip, and
+# each flip must be excused:
+#  * f32, by its gate gap: every expert that one side alone chose lies, on
+#    the CPU's gates, within ROUTE_MARGIN of the other side of the CPU's
+#    k-th/(k+1)-th boundary, relative to the CPU's k-th gate:
+#    (g - g_(k+1)) / g_(k) for an expert the CPU alone chose,
+#    (g_(k) - g) / g_(k) for one the card alone chose; 1e-4 is about 6x
+#    the largest f32 logits difference of the Yi-6B model phase (1.53e-5).
+#  * bf16 (margin None), by the router logits: for each expert a that the
+#    CPU alone chose and b that the card alone chose, the CPU's logit gap
+#    l_a - l_b is at most the card-vs-CPU difference of l_a plus that of
+#    l_b. Such a flip is the exact top-k of the card's own logits, which
+#    are held to MODEL_TOL. In bf16 the two sides' residual streams drift
+#    apart layer by layer (on an H100 the router logits' RMS difference
+#    grows from 1.4e-3 at the first layer to 1.4e-2 at the 24th), so the
+#    gaps that flip grow with depth and no fixed gap or count of ulps of
+#    the router's own rounding bounds them (PERF.md section 6).
+# At each flip the card takes the CPU's experts (with its own gates), as
+# compare_model feeds it the CPU's greedy tokens, so that the logits are
+# held to MODEL_TOL for their rounding and not for a discontinuity; the
+# fault runs keep the card's own routing.
+ROUTE_MARGIN = {"float32": 1e-4, "bfloat16": None}
+# Time box of the two MoE phases (serve_moe and model_moe) together.
+MOE_BOX_S = 240.0
+
+
+def route_agreement(g_cpu, l_cpu, id_cpu, l_card, id_card, margin,
+                    cap: int) -> dict:
+    """One MoE call's routing on the card against the CPU's: the CPU's
+    gates and router logits [T, E] and top-k ids [T, k], the card's router
+    logits and ids. Returns the choices, those both sides made, the
+    router logits' difference, each flip and the pairs past ``cap`` on
+    each side. A flip has its token, its relative gate gap, its widest
+    CPU logit gap ``logit_gap`` over the crossed pairs (and that pair's
+    two CPU logits, ``logits``), the most by
+    which a pair's gap exceeds its two logits' differences (``beyond``),
+    and whether it is excused: by ``gap < margin``, or with ``margin``
+    None by ``beyond <= 0`` (ROUTE_MARGIN)."""
+    t, k = id_cpu.shape
+    on_cpu = torch.zeros_like(g_cpu, dtype=torch.bool).scatter_(1, id_cpu,
+                                                                True)
+    on_card = torch.zeros_like(on_cpu).scatter_(1, id_card, True)
+    top = g_cpu.sort(dim=1, descending=True).values
+    l_cpu = l_cpu.float()
+    moved = (l_card.float() - l_cpu).abs()
+    flips = []
+    for r in (on_cpu != on_card).any(1).nonzero()[:, 0].tolist():
+        a, b = on_cpu[r] & ~on_card[r], on_card[r] & ~on_cpu[r]
+        gk, gk1 = top[r, k - 1], top[r, k]
+        gap = float(torch.cat([g_cpu[r][a] - gk1, gk - g_cpu[r][b]]).max()
+                    / gk)
+        pair_gap = l_cpu[r][a][:, None] - l_cpu[r][b][None, :]
+        beyond = float((pair_gap - moved[r][a][:, None]
+                        - moved[r][b][None, :]).max())
+        i, j = divmod(int(pair_gap.argmax()), pair_gap.shape[1])
+        flips.append({"token": r, "gap": gap,
+                      "logit_gap": float(pair_gap.max()),
+                      "logits": [float(l_cpu[r][a][i]), float(l_cpu[r][b][j])],
+                      "beyond": beyond,
+                      "excused": (beyond <= 0 if margin is None
+                                  else gap < margin)})
+
+    def dropped(on):
+        return int((on.sum(0) - cap).clamp_min(0).sum())
+    return {"choices": t * k, "agree": int((on_cpu & on_card).sum()),
+            "router_logits": {"max_abs_err": float(moved.max()),
+                              "rms_err": float(moved.square().mean().sqrt())},
+            "flips": flips,
+            "dropped_pairs": [dropped(on_cpu), dropped(on_card)]}
+
+
+class _RouteProbe:
+    """Wraps ``moe.router_logits``, ``moe.top_k`` and ``_greedy_logits``
+    around ``compare_model``: keeps the CPU run's router logits, gates and
+    ids of every MoE call, holds the card's sound run (the first on the
+    card in each compute dtype) to them call by call with
+    ``route_agreement`` and feeds the card the CPU's experts at each flip;
+    fault runs pass through."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.run = None                 # (dtype, index of the run)
+        self.runs: dict = {}            # dtype -> runs started
+        self.logits = None              # the last MoE call's router logits
+        self.cpu: dict = {}             # dtype -> [(gates, logits, ids)]
+        self.calls: dict = {}           # dtype -> [route_agreement] per call
+
+    def _greedy(self, orig):
+        def fn(m, *a, **kw):
+            d = m.cfg.compute_dtype
+            self.run = (d, self.runs.get(d, 0))
+            self.runs[d] = self.run[1] + 1
+            try:
+                return orig(m, *a, **kw)
+            finally:
+                self.run = None
+        return fn
+
+    def _router_logits(self, orig):
+        def fn(p, x):
+            self.logits = orig(p, x)
+            return self.logits
+        return fn
+
+    def _top_k(self, orig):
+        def fn(gates, k):
+            vals, ids = orig(gates, k)
+            d, i = self.run
+            if i == 0:                                  # the CPU
+                self.cpu.setdefault(d, []).append(
+                    (gates.cpu(), self.logits.cpu(), ids.cpu()))
+                return vals, ids
+            calls = self.calls.setdefault(d, [])
+            if i > 1 or len(calls) >= len(self.cpu[d]):
+                return vals, ids                        # a fault run
+            g_cpu, l_cpu, id_cpu = self.cpu[d][len(calls)]
+            rec = route_agreement(g_cpu, l_cpu, id_cpu, self.logits.cpu(),
+                                  ids.cpu(), ROUTE_MARGIN[d],
+                                  moe._capacity(self.cfg, g_cpu.shape[0]))
+            calls.append(rec)
+            if not rec["flips"]:
+                return vals, ids
+            rows = torch.tensor([f["token"] for f in rec["flips"]])
+            ids = ids.clone()
+            ids[rows.to(ids.device)] = id_cpu[rows].to(ids.device)
+            return gates.gather(-1, ids), ids
+        return fn
+
+    @contextlib.contextmanager
+    def attached(self):
+        with patched(moe, "router_logits", self._router_logits), \
+                patched(moe, "top_k", self._top_k), \
+                patched(sys.modules[__name__], "_greedy_logits",
+                        self._greedy):
+            yield self
+
+    def report(self, dname: str, layers: int) -> list:
+        """Per step (0: prefill; then each decode step): choices, agreed
+        share, the router logits' largest max-abs and RMS difference over
+        the step's calls, flips and excused flips with the excused flip of
+        the widest logit gap, the unexcused flips, and the CPU's and
+        card's pairs past capacity."""
+        out = []
+        calls = self.calls.get(dname, [])
+        for step in range(0, len(calls), layers):
+            part = calls[step:step + layers]
+            flips = [{"layer": li, **f} for li, c in enumerate(part)
+                     for f in c["flips"]]
+            excused = [f for f in flips if f["excused"]]
+            n = sum(c["choices"] for c in part)
+            agree = sum(c["agree"] for c in part)
+            out.append({
+                "calls": len(part), "choices": n, "agree_share": agree / n,
+                "router_logits": {
+                    key: max(c["router_logits"][key] for c in part)
+                    for key in ("max_abs_err", "rms_err")},
+                "flips": len(flips),
+                "excused": len(excused),
+                "widest_excused": max(excused, default=None,
+                                      key=lambda f: f["logit_gap"]),
+                "unexcused": [f for f in flips if not f["excused"]],
+                "dropped_pairs": [sum(c["dropped_pairs"][j] for c in part)
+                                  for j in (0, 1)]})
+        return out
+
+    def by_layer(self, dname: str, layers: int) -> list:
+        """Per layer, the router logits' largest RMS difference over the
+        steps: how the two sides drift apart with depth."""
+        calls = self.calls.get(dname, [])
+        return [max(c["router_logits"]["rms_err"]
+                    for c in calls[li::layers]) for li in range(layers)]
+
+
+def check_routing(routing: dict, steps: int, layers: int) -> None:
+    """Raises unless each compute dtype held every MoE call of its ``steps``
+    steps (prefill and decode) to the CPU's, with its router logits within
+    MODEL_TOL and no flip unexcused."""
+    for dname, held in routing.items():
+        if [s["calls"] for s in held] != [layers] * steps:
+            raise AssertionError(f"model_moe {dname}: held MoE calls per "
+                                 f"step {[s['calls'] for s in held]}, not "
+                                 f"{layers} in each of {steps} steps")
+        tol = MODEL_TOL[dname]
+        over = [(i, s["router_logits"]) for i, s in enumerate(held)
+                if s["router_logits"]["max_abs_err"] > tol["max"]
+                or s["router_logits"]["rms_err"] > tol["rms"]]
+        if over:
+            raise AssertionError(f"model_moe {dname}: router logits outside "
+                                 f"{tol} (step, difference): {over[:5]}")
+        bad = [(i, f) for i, s in enumerate(held) for f in s["unexcused"]]
+        if bad:
+            raise AssertionError(f"model_moe {dname}: flips the routing "
+                                 f"rule does not excuse (margin "
+                                 f"{ROUTE_MARGIN[dname]}; step, flip): "
+                                 f"{bad[:5]}")
+
+
+def serve_moe_phase(card: str) -> dict:
+    """The serving entry point at Granite-3.0-1B-A400M's full width with
+    the reference's defaults; K6 must launch once per attention call
+    (24 x 17 x 16 = 6,528) and every logits tensor must be finite. Then a
+    short run (8 requests, counts not read) profiled over 5 decode steps,
+    as the Yi-6B serve phase does."""
+    cfg = get_config(MOE_ARCH)
+    argv = ["--arch", MOE_ARCH, "--device", "cuda", "--seed", "0"]
+    served = run_serve(argv)
+    served.update(param_bytes(cfg))
+    for ln in served["lines"]:
+        print(ln, flush=True)
+    emit({"phase": "serve_moe", "card": card, **served})
+    want = cfg.num_layers * (1 + 16) * (64 // 4)
+    if served["launches"]["flash_attention"] != want:
+        raise AssertionError(f"serve_moe launched flash_attention "
+                             f"{served['launches']['flash_attention']} "
+                             f"times, not {want}")
+    if not served["logits_finite"]:
+        raise AssertionError("serve_moe produced non-finite logits")
+    torch.cuda.empty_cache()
+    profiled = run_serve(argv + ["--requests", "8"], profile_from=20,
+                         n_profile=5)
+    emit({"phase": "serve_moe_profile", "card": card,
+          "argv": profiled["argv"], "profile": profiled["profile"],
+          "logits_finite": profiled["logits_finite"]})
+    if not profiled["logits_finite"]:
+        raise AssertionError("profiled serve_moe run produced non-finite "
+                             "logits")
+    return served
+
+
+def moe_model_phase(cfg, *, layers: int, batch: int = 4, prompt: int = 48,
+                    steps: int = 8, dev: str = "cuda") -> dict:
+    """``compare_model`` on ``cfg`` cut to ``layers`` under a
+    ``_RouteProbe``: the runs and the routing per step in both compute
+    dtypes, emitted, then the logits held to MODEL_TOL and the routing by
+    ``check_routing``."""
+    cfg = cfg.with_(num_layers=layers)
+    probe = _RouteProbe(cfg)
+    t0 = time.perf_counter()
+    with probe.attached():
+        runs = compare_model(cfg, batch=batch, prompt=prompt, steps=steps,
+                             dev=dev)
+    row = {"phase": "model_moe", "arch": cfg.name, "layers": layers,
+           "steps": steps, "seconds": time.perf_counter() - t0,
+           "route_margin": ROUTE_MARGIN, "runs": runs,
+           "routing": {d: probe.report(d, layers) for d in BOTH},
+           "router_rms_by_layer": {d: probe.by_layer(d, layers)
+                                   for d in BOTH}}
+    emit(row)
+    check_model(runs)
+    check_routing(row["routing"], steps + 1, layers)
+    return row
 
 
 # --------------------------- main --------------------------------------------
@@ -3357,6 +3638,22 @@ def main() -> int:
     del profiled
     torch.cuda.empty_cache()
 
+    # The MoE family: Granite-3.0-1B-A400M served at full width with the
+    # same defaults (K6 at head dim 64, GQA 2), then held card vs CPU with
+    # its routing; the two phases share MOE_BOX_S.
+    seconds = {}
+    t0 = time.perf_counter()
+    served_moe = serve_moe_phase(card)
+    seconds["serve_moe"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    moe_model_phase(get_config(MOE_ARCH), layers=MOE_MODEL_LAYERS)
+    seconds["model_moe"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    total = sum(seconds.values())
+    emit({"phase": "moe_seconds", "card": card, **seconds, "total": total,
+          "box_s": MOE_BOX_S, "within_box": total <= MOE_BOX_S})
+
     # Card-vs-CPU model phase: Yi-6B at full width, 2 layers (depth cut),
     # in f32 and bf16 compute, with the faults it must see.
     t0 = time.perf_counter()
@@ -3376,7 +3673,9 @@ def main() -> int:
          "max_abs_err": checked["err"][k], "ms": timing[k]["ms"],
          "plain_ms": timing[k]["plain_ms"], "bound_ms": timing[k]["bound_ms"],
          "bound_by": timing[k]["bound_by"],
-         "library_ms": timing[k]["library_ms"]} for k in LAUNCHES]})
+         "library_ms": timing[k]["library_ms"],
+         **({"launches_serve_moe": served_moe["launches"][k]}
+            if k == "flash_attention" else {})} for k in LAUNCHES]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -84,7 +84,8 @@ def attention_block(cfg, p, x, positions, pos0: int, *,
         if cfg.kv_layout != "sd":
             raise NotImplementedError(
                 f"kv_layout {cfg.kv_layout!r} is not ported (ROADMAP Queue 1, "
-                f"item 3: only 'sd' is on the serving path)")
+                f"\"Rest of the serving model stack\": only 'sd' is on the "
+                f"serving path)")
         ck, cv = cache["k"], cache["v"]
         max_len = ck.shape[1]
         if not 0 <= pos0 < max_len:

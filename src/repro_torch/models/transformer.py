@@ -1,11 +1,13 @@
-"""CausalLM for the dense family, as in the reference
+"""CausalLM for the dense and moe families, as in the reference
 (``repro.models.transformer``): the same param and cache trees (per-slot
 params stacked ``[n_super, ...]``), with the layer stack run as a Python
 loop over the stacked params (no ``scan``, no ``remat``: there is no
-backward pass here, and no mesh to constrain to).
+backward pass here, and no mesh to constrain to). A moe slot is an
+attention block followed by ``moe_block`` on one shard, plus the dense
+residual FFN where ``moe_dense_ff`` is set.
 
-The other families (moe, ssm, hybrid, encdec, vlm) are not ported yet
-(ROADMAP Queue 1, item 9).
+The other families (ssm, hybrid, encdec, vlm) are not ported yet (ROADMAP
+Queue 1, "Rest of the serving model stack").
 """
 from __future__ import annotations
 
@@ -14,14 +16,18 @@ import torch
 from .attention import attention_block, attn_spec, padded_heads
 from .layers import (P, embed, embed_spec, mlp, mlp_spec, rmsnorm,
                      rmsnorm_spec, softcap, unembed)
+from .moe import moe_block, moe_spec
 from .params import tree_map
 
 
 # ----------------------------- slot layout -----------------------------------
 def block_slots(cfg) -> list:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported (ROADMAP Queue 1, item 9)")
+            f"family {cfg.family!r} is not ported (ROADMAP Queue 1, \"Rest "
+            f"of the serving model stack\")")
+    if cfg.family == "moe":
+        return ["attn_moe"] * max(1, len(cfg.attn_types))
     return [f"attn:{t}" for t in cfg.attn_types]
 
 
@@ -35,6 +41,12 @@ def n_super(cfg) -> int:
 
 def _slot_spec(cfg, slot: str) -> dict:
     d = cfg.d_model
+    if slot == "attn_moe":
+        spec = {"ln": rmsnorm_spec(d), "attn": attn_spec(cfg),
+                "ln2": rmsnorm_spec(d), "moe": moe_spec(cfg)}
+        if cfg.moe_dense_ff:
+            spec["mlp"] = mlp_spec(d, cfg.moe_dense_ff)
+        return spec
     return {"ln": rmsnorm_spec(d), "attn": attn_spec(cfg),
             "ln2": rmsnorm_spec(d), "mlp": mlp_spec(d, cfg.d_ff)}
 
@@ -44,7 +56,8 @@ def _slot_cache_spec(cfg, slot: str, batch: int, max_len: int):
     if cfg.kv_layout != "sd":
         raise NotImplementedError(
             f"kv_layout {cfg.kv_layout!r} is not ported (ROADMAP Queue 1, "
-            f"item 3: only 'sd' is on the serving path)")
+            f"\"Rest of the serving model stack\": only 'sd' is on the "
+            f"serving path)")
     shape = (batch, max_len, kv, hd)
     axes = ("batch", "kv_seq", "kv_heads", "head_dim")
     return {"k": P(shape, axes, init="zeros", dtype=cfg.compute_dtype),
@@ -58,6 +71,8 @@ def _apply_slot(cfg, slot, p, x, positions, pos0, cache):
                             layer_window=window, cache=cache)
     x = x + y
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if slot == "attn_moe":
+        return x + moe_block(cfg, p["moe"], h, dense_mlp=p.get("mlp")), nc
     return x + mlp(p["mlp"], h, x.dtype), nc
 
 
@@ -69,7 +84,7 @@ def _stack(n: int, tree):
 
 # ----------------------------- the model --------------------------------------
 class CausalLM:
-    """Decoder-only LM of the dense family."""
+    """Decoder-only LM of the dense and moe families."""
 
     def __init__(self, cfg):
         self.cfg = cfg

@@ -1,8 +1,10 @@
 """The serving path on the CPU against the reference: the model (reduced
 Yi-6B, reduced Gemma-2-27B with local/global layers, window 32 and both
-softcaps, and reduced Yi-6B with padded heads and a padded vocab) with the
-reference's own weights carried across, the tuner's
-Newton step, the KV pool with its HBM tuner, and the serve entry point.
+softcaps, reduced Yi-6B with padded heads and a padded vocab, and the moe
+family: reduced Granite-3.0-1B-A400M and reduced Arctic-480B with its
+dense residual FFN) with the reference's own weights carried across, the
+tuner's Newton step, the KV pool with its HBM tuner, and the serve entry
+point.
 
 The model runs in f32 (``reduced()`` sets the compute dtype), where K6's
 function equals the reference's ``full_attention``/``chunked_attention``
@@ -49,7 +51,9 @@ PADDED = {"head_pad_to": 8, "vocab_size": 250}
 
 
 @pytest.fixture(scope="module", params=["yi-6b", "gemma2-27b",
-                                        "yi-6b:padded"])
+                                        "yi-6b:padded",
+                                        "granite-moe-1b-a400m",
+                                        "arctic-480b"])
 def pair(request):
     """(reference model, its params, port model, the same params)."""
     arch, _, variant = request.param.partition(":")
@@ -238,9 +242,8 @@ def test_kv_pool_and_hbm_tuner_match_reference(policy):
 
 
 # ----------------------------- the entry point ----------------------------------
-@pytest.mark.parametrize("requests", [8, 64])
-def test_serve_main_matches_reference(requests, capsys):
-    argv = ["--reduced", "--requests", str(requests)]
+def _serve_both(argv, capsys):
+    """Both packages' serve entry points on ``argv``: (stats, output)."""
     want = ref_serve.main(argv)
     want_out = capsys.readouterr().out
     got = serve.main(argv + ["--device", "cpu"])
@@ -248,5 +251,17 @@ def test_serve_main_matches_reference(requests, capsys):
     assert got == want
     assert got_out == want_out
     assert "[serve]" in got_out
+    return got, got_out
+
+
+@pytest.mark.parametrize("requests", [8, 64])
+def test_serve_main_matches_reference(requests, capsys):
+    _, out = _serve_both(["--reduced", "--requests", str(requests)], capsys)
     if requests == 64:
-        assert "[governor]" in got_out
+        assert "[governor]" in out
+
+
+def test_serve_main_moe_matches_reference(capsys):
+    _, out = _serve_both(["--reduced", "--arch", "granite-moe-1b-a400m"],
+                         capsys)
+    assert "[governor]" in out
