@@ -30,7 +30,8 @@
    shapes (``host_split``). Then K6
    (flash_attention) against its plain version in bf16 (2e-2) and f32
    (1e-5) at the serving path's prefill and decode shapes (Yi-6B heads,
-   and Granite-3.0-1B-A400M's at prefill and the last decode position),
+   and Granite-3.0-1B-A400M's and Zamba2-2.7B's shared attention's at
+   prefill and the last decode position),
    a 4096-token Yi-6B prefill and a Gemma-2-27B local layer (8192 tokens,
    window 4096, softcap 50), timed beside SDPA with the same mask; in
    bf16 also the relative RMS difference (``ATTN_REL_RMS``), and at the
@@ -41,8 +42,9 @@
    write memory, device pool off), partitioned memory component, OPT
    flush policy, two trees with 90/10 write skew; the log cap is raised so
    that no log-triggered flush runs (see ``SERVICE_MAX_LOG_BYTES``). Loads
-   2**20 distinct keys in Put batches of 4096, then runs 256 YCSB-A
-   submits (2048 Gets + 2048 Puts, zipfian 0.99, plus 64 Deletes and 16
+   2**20 distinct keys in Put batches of 4096, then runs
+   ``SERVICE_MIXED`` = 128 YCSB-A submits (cut from 256 for the run's
+   time limit; 2048 Gets + 2048 Puts, zipfian 0.99, plus 64 Deletes and 16
    Scans of 100). Every Get and Scan is checked against a dict oracle,
    and K1, K2 and K5 must have launched in this phase (the wrappers'
    launch counts are zeroed just before it); K5 runs in its tier form,
@@ -59,7 +61,7 @@
    one-launch store path. (K5 does not run here:
    a store-view miss admits every page of the tree before the per-tier
    loop.)
-5. Adaptive phase: the staged phase's store and stream (2**20 keys, 256
+5. Adaptive phase: the staged phase's store and stream (2**20 keys, 128
    YCSB-A submits) over a ``ShardedStore`` of 4 hash-routed shards under
    ``AdaptiveGovernor(TunerConfig())``, the §5 memory tuner moving the
    write-memory/buffer-cache boundary of the one shared arena. Every Get
@@ -122,7 +124,7 @@
     removed at its end; every row names the card and the filesystem
     (type, mount point). ``stream``: the staged phase's configuration on
     ``storage_medium="files"`` (``per_batch``), its load and its first
-    ``FILES_SUBMITS`` of 256 mixed submits (the one cut, listed under
+    ``FILES_SUBMITS`` of 128 mixed submits (the files' cut, listed under
     ``reduced``), every Get and Scan against the oracle; results, IOStats
     (but fsyncs) and cache counts equal the staged phase's after that
     submit, and so does the store's state (taken in the staged phase's
@@ -154,12 +156,32 @@
    full width (24 layers, 32 experts, top-8; the same defaults), K6
    exactly 24 x 17 x 16 = 6,528 times at head dim 64 and GQA 2, every
    logits tensor finite; then ``compare_model`` on Granite at all
-   ``MOE_MODEL_LAYERS`` = 24 layers, as in 14, with each MoE call's
+   ``MOE_MODEL_LAYERS`` = 24 layers, as in 15, with each MoE call's
    router logits held to ``MODEL_TOL`` and its top-k experts on the card
    to the CPU's (``ROUTE_MARGIN``, ``route_agreement``): per step the
    share of agreed (token, expert) choices, the router logits'
    difference, the flips and their gaps, and the pairs past capacity.
-14. Card-vs-CPU model phase: Yi-6B at full width but 2 layers, batch 4,
+14. Hybrid phases (``"serve_hybrid"``, ``"model_hybrid"``, then
+   ``"hybrid_seconds"`` against ``HYBRID_BOX_S``): the serve entry point
+   at Zamba2-2.7B's full width (54 Mamba2 layers in 9 groups of 6, each
+   group followed by the one shared attention + MLP block, K6 at head dim
+   80 with 32 heads and 32 KV heads; the same defaults), K6 exactly 9 x
+   17 x 16 = 2,448 times, every logits tensor finite, and a profiled
+   short run; then ``hybrid_model_phase`` on Zamba2 at all
+   ``HYBRID_MODEL_LAYERS`` = 54 layers, batch 4, prompt 48, 8 decode
+   steps, the same weights on the card and the CPU: an f64 run on the
+   card gives the greedy tokens all are fed and the exact stream; the
+   free card run, after each group and at the logits, within
+   ``HYBRID_DRIFT_MULT`` times the CPU's own drift from f64
+   (``residual_rms_by_group``, ``free_logits``); the sound run and the
+   faults with every slot (each Mamba2 layer and each shared attention
+   block) fed the CPU's input of that slot, each slot's output held in
+   logits, through the model's own head, to ``MODEL_TOL``
+   (``slot_logits``), as are the final logits; each fault must break a
+   limit at a slot or at the logits, the bf16 decode fault at a prompt
+   of ``HYBRID_FAULT_PROMPT`` = 16 (``short_fault``;
+   ``hybrid_model_phase`` says why).
+15. Card-vs-CPU model phase: Yi-6B at full width but 2 layers, batch 4,
    prompt 48, 8 decode steps, the same seeded weights on the card and on
    the CPU, in f32 and bf16 compute: the largest and the RMS logits
    difference within ``MODEL_TOL`` at every step, greedy tokens equal
@@ -168,8 +190,9 @@
 
 Prints JSON lines; the ``kernels`` line lists each kernel with its launch
 count on its main path (K1, K2, K5: the staged service phase; K3 and K4:
-the pool phase; K6: the serve phase, and ``launches_serve_moe`` the
-serve_moe phase), its time, its bound and its
+the pool phase; K6: the serve phase, ``launches_serve_moe`` the
+serve_moe phase and ``launches_serve_hybrid`` the serve_hybrid phase),
+its time, its bound and its
 yardsticks (K5's at its tier form's timed shape). The last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU, and when
 any phase fails.
@@ -230,8 +253,9 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import attention as port_attention  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import build_model, init_params  # noqa: E402
-from repro_torch.models.params import leaves, tree_map  # noqa: E402
-from repro_torch.models.transformer import CausalLM  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.params import tree_map  # noqa: E402
+from repro_torch.models.transformer import CausalLM, F32_LEAVES  # noqa: E402
 from repro_torch.runtime.hbm_arbiter import (  # noqa: E402
     HBMArbiter, HBMArbiterConfig)
 from repro_torch.runtime.hbm_tuner import HBMGovernor  # noqa: E402
@@ -243,15 +267,19 @@ BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
 K_HASHES = 7
 KB, MB = 1 << 10, 1 << 20
 # The service phase raises the transaction-log cap above the bytes it
-# writes (1.5 GiB), so no log-triggered flush runs. A log-triggered partial
-# flush (PartitionedMemComponent.flush_min_lsn) moves the min-LSN SSTable
-# of a memory level to disk while an overlapping SSTable of an OLDER
-# memory level keeps older versions of some of its keys in memory, and
+# writes (under 1.5 GiB), so no log-triggered flush runs. A log-triggered
+# partial flush (PartitionedMemComponent.flush_min_lsn) moves the min-LSN
+# SSTable of a memory level to disk while an overlapping SSTable of an
+# OLDER memory level keeps older versions of some of its keys in memory, and
 # reads then return those older versions. The reference package does the
 # same, bit for bit, so the fault is the reference's and is filed in
 # ROADMAP.md (Queue 3). The card-vs-CPU replay below needs no oracle, so
 # it runs that path on purpose with a small cap (REPLAY_MAX_LOG_BYTES).
 SERVICE_MAX_LOG_BYTES = 4 << 30
+# Mixed submits of the staged stream, which the pool, adaptive, workers
+# and files phases run again: cut from 256 to 128 so that the whole script
+# stays near half of its 1200 s limit as model families are added.
+SERVICE_MIXED = 128
 REPLAY_MAX_LOG_BYTES = 192 << 10
 SOURCES = {
     "merge_pair": ("src/repro_torch/csrc/merge.cu",
@@ -2284,7 +2312,7 @@ def workers_phase(card: str, staged: dict, staged_end: dict,
 
 # --------------------------- the files medium --------------------------------
 # The files phase drives the staged stream's load and its first
-# FILES_SUBMITS mixed submits (of 256) on the files medium: the one cut.
+# FILES_SUBMITS mixed submits (of SERVICE_MIXED) on the files medium.
 FILES_SUBMITS = 64
 # (shards, boundary) of the kill workload at which a child kills itself.
 FILES_KILLS = ((1, 5), (1, 17), (4, 11), (4, 23))
@@ -2387,7 +2415,7 @@ def files_stream(card: str, fs: dict, root: str, staged: dict,
                                          service_kw["n_mixed"]]},
            "n_ops": n_ops, "files": files_report(keep["store"], n_ops),
            "submits_per_s": {"files": out["mixed"]["submits_per_s"],
-                             "staged_256": staged["mixed"]["submits_per_s"]},
+                             "staged": staged["mixed"]["submits_per_s"]},
            "load_s": {"files": out["load_s"], "staged": staged["load_s"]},
            "mixed_wall_s": out["mixed_wall_s"],
            "device_busy_share": out["mixed"]["device_busy_share"],
@@ -2633,11 +2661,12 @@ ATTN_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 ATTN_REL_RMS = 5e-3
 YI_HEADS = {"h": 32, "kv": 4, "hd": 128}
 GRANITE_HEADS = {"h": 16, "kv": 8, "hd": 64}
+ZAMBA_HEADS = {"h": 32, "kv": 32, "hd": 80}
 # The serving path's prefill (48 prompt tokens over its cache of 64 rows)
 # and decode (one query over rows 0..pos of that cache) at Yi-6B's heads
-# and at Granite-3.0-1B-A400M's (prefill, and decode at the last
-# position), a 4096-token Yi-6B prefill, and a Gemma-2-27B local layer at
-# 8192 tokens.
+# and at Granite-3.0-1B-A400M's and Zamba2-2.7B's shared attention's
+# (prefill, and decode at the last position), a 4096-token Yi-6B prefill,
+# and a Gemma-2-27B local layer at 8192 tokens.
 ATTN_CASES = [
     ("serve_prefill", dict(b=4, sq=48, sk=64, causal=True, **YI_HEADS)),
     *[(f"serve_decode_pos{p}", dict(b=4, sq=1, sk=p + 1, causal=False,
@@ -2646,6 +2675,10 @@ ATTN_CASES = [
                                    **GRANITE_HEADS)),
     ("granite_serve_decode_pos63", dict(b=4, sq=1, sk=64, causal=False,
                                         **GRANITE_HEADS)),
+    ("zamba2_serve_prefill", dict(b=4, sq=48, sk=64, causal=True,
+                                  **ZAMBA_HEADS)),
+    ("zamba2_serve_decode_pos63", dict(b=4, sq=1, sk=64, causal=False,
+                                       **ZAMBA_HEADS)),
     ("yi_prefill_4096", dict(b=1, sq=4096, sk=4096, causal=True, **YI_HEADS)),
     ("gemma2_local_8192", dict(b=1, sq=8192, sk=8192, causal=True, h=32,
                                kv=16, hd=128, window=4096, softcap=50.0)),
@@ -2991,13 +3024,26 @@ def run_serve(argv, *, profile_from: int = 0, n_profile: int = 0) -> dict:
 
 def param_bytes(cfg) -> dict:
     """Bytes of the params in ``param_dtype`` and of the compute copy (every
-    weight but the norm scales, in the compute dtype)."""
-    specs = leaves(build_model(cfg).param_specs())
-    n = sum(int(np.prod(s.shape)) for s in specs)
-    n_scale = sum(int(np.prod(s.shape)) for s in specs if s.init == "ones")
+    weight but those ``F32_LEAVES`` names, in the compute dtype)."""
+    n = {"all": 0, "f32": 0}
+
+    def walk(tree, key=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, k)
+        elif isinstance(tree, list):
+            for v in tree:
+                walk(v, key)
+        else:
+            size = int(np.prod(tree.shape))
+            n["all"] += size
+            n["f32"] += size if key in F32_LEAVES else 0
+
+    walk(build_model(cfg).param_specs())
     size = lambda d: torch.empty((), dtype=getattr(torch, d)).element_size()  # noqa: E731
-    return {"param_bytes": n * size(cfg.param_dtype),
-            "compute_copy_bytes": (n - n_scale) * size(cfg.compute_dtype)}
+    return {"param_bytes": n["all"] * size(cfg.param_dtype),
+            "compute_copy_bytes": (n["all"] - n["f32"])
+            * size(cfg.compute_dtype)}
 
 
 # --------------------------- card-vs-CPU model phase -------------------------
@@ -3068,6 +3114,20 @@ def _diff(ref: torch.Tensor, got: torch.Tensor) -> dict:
             "finite": bool(torch.isfinite(got).all())}
 
 
+def _step(ref: torch.Tensor, got: torch.Tensor, tol: dict) -> dict:
+    """One step's logits on the card against the CPU's: ``_diff``, and
+    whether the greedy tokens agree where the CPU's top-2 gap is clear."""
+    top2 = ref.topk(2, dim=-1).values
+    # Two logits each within "max" of the CPU's keep their order when
+    # their gap is wider than twice that.
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * tol["max"]
+    same = ref.argmax(-1) == got.argmax(-1)
+    return {**_diff(ref, got),
+            "logits_rms": float(ref.square().mean().sqrt()),
+            "clear_rows": int(clear.sum()), "tokens_equal": int(same.sum()),
+            "clear_tokens_equal": bool(same[clear].all())}
+
+
 def compare_model(cfg, *, batch: int, prompt: int, steps: int,
                   seed: int = 0, dev: str = "cuda") -> list:
     """``cfg`` (a model at full width, fewer layers): the same weights from
@@ -3095,19 +3155,9 @@ def compare_model(cfg, *, batch: int, prompt: int, steps: int,
         cp = m.compute_params(p_dev)
         got, _ = run(dev, cp, fed)
         rec = {"compute_dtype": dname, "layers": cfg.num_layers,
-               "tol": MODEL_TOL[dname], "steps": []}
-        for r, g in zip(ref, got):
-            top2 = r.topk(2, dim=-1).values
-            # Two logits each within "max" of the CPU's keep their order
-            # when their gap is wider than twice that.
-            clear = (top2[:, 0] - top2[:, 1]) > 2 * MODEL_TOL[dname]["max"]
-            same = r.argmax(-1) == g.argmax(-1)
-            rec["steps"].append({**_diff(r, g),
-                                 "logits_rms": float(r.square().mean().sqrt()),
-                                 "clear_rows": int(clear.sum()),
-                                 "tokens_equal": int(same.sum()),
-                                 "clear_tokens_equal": bool(same[clear].all())})
-        rec["faults"] = {}
+               "tol": MODEL_TOL[dname],
+               "steps": [_step(r, g, MODEL_TOL[dname])
+                         for r, g in zip(ref, got)], "faults": {}}
         for name, (make, _) in MODEL_FAULTS.items():
             with patched(port_attention, "flash_attention", make):
                 bad, _ = run(dev, cp, fed)
@@ -3403,6 +3453,326 @@ def moe_model_phase(cfg, *, layers: int, batch: int = 4, prompt: int = 48,
     return row
 
 
+# --------------------------- hybrid: Zamba2 serve and model phases ----------
+HYBRID_ARCH = "zamba2-2.7b"
+# Depth of the Zamba2 card-vs-CPU model phase, fixed before its first run
+# on the card: all 54 Mamba2 layers in their 9 groups, each group followed
+# by the shared attention block (the CPU side was estimated at 8-10 s a
+# compute dtype from one full-width layer and block timed on an 8-core
+# host, as tools/hybrid_drift.py times them). A failing limit is a
+# finding, not a reason to cut it. The phase runs at the serve's prompt
+# of 48 tokens.
+HYBRID_MODEL_LAYERS = 54
+# Prompt of one more fault run, in bf16 only: the decode fault that drops
+# the oldest key, at 16 tokens (one key of 17 to 24). At the serve's 48
+# (one key of 49 to 56) it moved the first attention slot's bf16 logits
+# by an RMS of 0.0166, inside MODEL_TOL's 0.018 (run H2 on an H100,
+# PERF.md section 6): there the bf16 limit cannot see it, while the f32
+# one can (0.0159 against 3e-6).
+HYBRID_FAULT_PROMPT = 16
+HYBRID_SHORT_FAULT = ("bfloat16", "decode_skips_oldest_key")
+# Limit of the free card run, which no slot is fed: at every step, after
+# every group and at the logits, the RMS of its difference from the CPU
+# at most HYBRID_DRIFT_MULT times the RMS of the CPU's own difference
+# from an f64 run of the same weights and tokens (the rounding of the
+# compute dtype alone, amplified by the model as the card's is). Two
+# implementations that each drift D from the exact stream differ by up
+# to 2D; 4 leaves the card twice the CPU's drift. Before this limit was
+# set, the card-vs-CPU drift read 8.37e-6 to 1.64e-4 in f32 (run H3) and
+# the CPU's f32-vs-f64 drift 5.17e-6 to 9.03e-5 (tools/hybrid_drift.py,
+# other weights of the same shapes): a ratio of 1.6-1.8.
+HYBRID_DRIFT_MULT = 4.0
+# Time box of the two hybrid phases (serve_hybrid and model_hybrid)
+# together, stated before their first run.
+HYBRID_BOX_S = 240.0
+
+
+@contextlib.contextmanager
+def float64_mode():
+    """The port's model in f64, as an exact reference: ``Tensor.float``
+    keeps float64 (the port casts to f32 where the reference reads f32)
+    and attention takes K6's plain version (K6 takes f32 and bf16 only)."""
+    to_f32 = torch.Tensor.float
+    torch.Tensor.float = lambda t: (t if t.dtype == torch.float64
+                                    else to_f32(t))
+    try:
+        with patched(port_attention, "flash_attention",
+                     lambda f: attn_k.flash_attention_plain):
+            yield
+    finally:
+        torch.Tensor.float = to_f32
+
+
+def _recording(store: list, only=None):
+    """A wrapper of ``transformer._apply_slot`` that appends each slot's
+    (name, input, output) on the CPU to ``store`` (``only``: that slot)."""
+    def make(orig):
+        def fn(cfg, slot, p, x, *a):
+            out = orig(cfg, slot, p, x, *a)
+            if only is None or slot == only:
+                store.append((slot, x.cpu(), out[0].cpu()))
+            return out
+        return fn
+    return make
+
+
+def _anchored(rec: list, m, params, diffs: list):
+    """A wrapper of ``transformer._apply_slot`` that feeds each slot the
+    input that ``rec`` (a ``_recording`` of the CPU's run) holds for it,
+    and appends to ``diffs`` the ``_diff`` of its output from the
+    recorded one in logits, both mapped by the model's own head."""
+    def make(orig):
+        calls = iter(rec)
+
+        def fn(cfg, slot, p, x, *a):
+            name, x_in, x_out = next(calls)
+            if name != slot:
+                raise AssertionError(f"anchored run: slot {slot}, the "
+                                     f"record has {name}")
+            out = orig(cfg, slot, p, x_in.to(x.device), *a)
+            diffs.append(_diff(m._logits(params, x_out.to(x.device)),
+                               m._logits(params, out[0])))
+            return out
+        return fn
+    return make
+
+
+def _per_slot(diffs: list, n: int, tol: dict) -> dict:
+    """An anchored run's ``diffs``: per slot of a step (``n`` of them), the
+    largest max-abs and RMS logits difference over the steps; the calls
+    held and whether any breaks ``tol``."""
+    return {"calls": len(diffs),
+            "max_abs_err": [max(c["max_abs_err"] for c in diffs[j::n])
+                            for j in range(min(n, len(diffs)))],
+            "rms_err": [max(c["rms_err"] for c in diffs[j::n])
+                        for j in range(min(n, len(diffs)))],
+            "breaks": _breaks(diffs, tol)}
+
+
+def _drift(cpu, card, exact) -> dict:
+    """One point of the free run: the card's RMS difference from the CPU,
+    the CPU's from the f64 run, their ratio and whether the card's is
+    finite."""
+    err = _rms(card.double() - cpu.double())
+    ref = _rms(cpu.double() - exact.double())
+    return {"rms_err": err, "f64_rms_err": ref,
+            "ratio": err / ref if ref else (0.0 if err == 0 else
+                                            float("inf")),
+            "finite": bool(torch.isfinite(card).all())}
+
+
+def serve_hybrid_phase(card: str) -> dict:
+    """The serving entry point at Zamba2-2.7B's full width with the
+    reference's defaults; K6 must launch once per shared-attention call
+    (9 groups x 17 x 16 = 2,448) and every logits tensor must be finite.
+    Then a short run (8 requests, counts not read) profiled over 5 decode
+    steps, as the other serve phases do."""
+    cfg = get_config(HYBRID_ARCH)
+    argv = ["--arch", HYBRID_ARCH, "--device", "cuda", "--seed", "0"]
+    served = run_serve(argv)
+    served.update(param_bytes(cfg))
+    for ln in served["lines"]:
+        print(ln, flush=True)
+    emit({"phase": "serve_hybrid", "card": card, **served})
+    want = build_model(cfg).n_super * (1 + 16) * (64 // 4)
+    if served["launches"]["flash_attention"] != want:
+        raise AssertionError(f"serve_hybrid launched flash_attention "
+                             f"{served['launches']['flash_attention']} "
+                             f"times, not {want}")
+    if not served["logits_finite"]:
+        raise AssertionError("serve_hybrid produced non-finite logits")
+    torch.cuda.empty_cache()
+    profiled = run_serve(argv + ["--requests", "8"], profile_from=20,
+                         n_profile=5)
+    emit({"phase": "serve_hybrid_profile", "card": card,
+          "argv": profiled["argv"], "profile": profiled["profile"],
+          "logits_finite": profiled["logits_finite"]})
+    if not profiled["logits_finite"]:
+        raise AssertionError("profiled serve_hybrid run produced non-finite "
+                             "logits")
+    return served
+
+
+def hybrid_model_phase(cfg, *, layers: int, batch: int = 4,
+                       prompt: int = 48,
+                       fault_prompt: int = HYBRID_FAULT_PROMPT,
+                       steps: int = 8, dev: str = "cuda") -> dict:
+    """``cfg`` cut to ``layers``, card against CPU, with the same weights
+    (drawn on ``dev`` from seed 0) and tokens. First an f64 run on
+    ``dev`` (``float64_mode``), whose greedy tokens every run at
+    ``prompt`` is fed. Then in each compute dtype:
+
+      * the CPU's run, every slot's input and output recorded;
+      * the card's free run: after each group (the shared block's output)
+        and at the logits, at every step, its RMS difference from the
+        CPU's held to ``HYBRID_DRIFT_MULT`` times the CPU's difference
+        from the f64 run, and finite (``residual_rms_by_group``,
+        ``free_logits``);
+      * the card's anchored sound run: each slot (a Mamba2 layer or the
+        shared block) fed the CPU's input of that slot, its output held
+        in logits, through the model's head, to ``MODEL_TOL``
+        (``slot_logits``), as are the final logits and the clear greedy
+        tokens (``runs``, as ``check_model`` holds them);
+      * each of ``MODEL_FAULTS`` in place of K6, anchored, which must
+        break a limit at a slot or at the logits in the dtypes it lists
+        (``fault_slots``), but for ``HYBRID_SHORT_FAULT``, which must
+        break in the short run:
+    then in bf16 the CPU, the anchored sound run and that fault at
+    ``fault_prompt`` tokens (``short_fault``), the CPU's greedy tokens
+    fed.
+
+    Why anchored: in this model a perturbation grows with depth in exact
+    arithmetic (a relative 1e-7 at the input is 1.8e-6 of the stream
+    after 54 layers in f64), so end to end the card and the CPU drift
+    apart by the amplified rounding of their dtype: after 54 layers the
+    CPU's f32 stream is 1.0e-5 of the stream away from its f64 one, past
+    MODEL_TOL's 3e-6 RMS, while a slot fed the f64 input reads at most
+    6.6e-7 RMS in logits (``tools/hybrid_drift.py``). Each slot fed the
+    CPU's input is held for its own rounding, as the MoE phase feeds the
+    card the CPU's experts at a flip; the free run is held against the
+    drift that rounding alone makes."""
+    cfg = cfg.with_(num_layers=layers)
+    model = build_model(cfg)
+    per_step = model.n_super * (len(model.slots) + 1)
+    t0 = time.perf_counter()
+    p_dev = init_params(model.param_specs(),
+                        torch.Generator(device=dev).manual_seed(0),
+                        cfg.param_dtype, dev)
+    p_cpu = tree_map(lambda t: t.cpu(), p_dev)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch, prompt)).astype(np.int32))
+
+    def run(m, params, toks, d, feed, hook, fault=None, cache_dtype=None):
+        cache = init_params(m.cache_specs(batch, toks.shape[1] + steps),
+                            None, cache_dtype or cfg.param_dtype, d)
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(patched(transformer, "_apply_slot", hook))
+            if fault is not None:
+                stack.enter_context(patched(port_attention,
+                                            "flash_attention", fault))
+            return _greedy_logits(m, params, cache, toks, steps, d, feed)
+
+    exact: list = []
+    with float64_mode():
+        p64 = tree_map(lambda t: t.double(), p_dev)
+        exact_logits, fed = run(
+            build_model(cfg.with_(compute_dtype="float64")), p64, tokens,
+            dev, None, _recording(exact, "attn:global"), None, "float64")
+        del p64
+    row = {"phase": "model_hybrid", "arch": cfg.name, "layers": layers,
+           "groups": model.n_super, "prompt": prompt, "steps": steps,
+           "drift_mult": HYBRID_DRIFT_MULT, "runs": [],
+           "residual_rms_by_group": {}, "free_logits": {},
+           "slot_logits": {}, "fault_slots": {}}
+    for dname in BOTH:
+        m = build_model(cfg.with_(compute_dtype=dname))
+        cp_cpu, cp_dev = m.compute_params(p_cpu), m.compute_params(p_dev)
+        rec: list = []
+        ref, _ = run(m, cp_cpu, tokens, "cpu", fed, _recording(rec))
+        free: list = []
+        free_logits, _ = run(m, cp_dev, tokens, dev, fed,
+                             _recording(free, "attn:global"))
+        cpu_groups = [r for r in rec if r[0] == "attn:global"]
+        if not len(free) == len(cpu_groups) == len(exact):
+            raise AssertionError(f"model_hybrid {dname}: group outputs "
+                                 f"{len(free)}, {len(cpu_groups)}, "
+                                 f"{len(exact)}")
+        points = [_drift(c[2], f[2], e[2])
+                  for c, f, e in zip(cpu_groups, free, exact)]
+        row["residual_rms_by_group"][dname] = {
+            k: [max(p[k] for p in points[g::model.n_super])
+                for g in range(model.n_super)]
+            for k in ("rms_err", "f64_rms_err", "ratio")}
+        row["residual_rms_by_group"][dname]["stream_rms"] = [
+            max(_rms(c[2]) for c in cpu_groups[g::model.n_super])
+            for g in range(model.n_super)]
+        logit_points = [_drift(r, f, e) for r, f, e in
+                        zip(ref, free_logits, exact_logits)]
+        row["free_logits"][dname] = logit_points
+        for where, pts in (("group", points), ("logits", logit_points)):
+            bad = [p for p in pts if not p["finite"]
+                   or p["rms_err"] > HYBRID_DRIFT_MULT * p["f64_rms_err"]]
+            if bad:
+                raise AssertionError(
+                    f"model_hybrid {dname}: the free run's {where} drift "
+                    f"from the CPU exceeds {HYBRID_DRIFT_MULT}x the CPU's "
+                    f"from f64: {bad[0]}")
+
+        def anchored(toks, feed, rec, fault=None):
+            diffs: list = []
+            got, _ = run(m, cp_dev, toks, dev, feed,
+                         _anchored(rec, m, cp_dev, diffs), fault)
+            if len(diffs) != len(rec):
+                raise AssertionError(f"model_hybrid {dname}: held "
+                                     f"{len(diffs)} slots of {len(rec)}")
+            return got, _per_slot(diffs, per_step, MODEL_TOL[dname])
+
+        got, row["slot_logits"][dname] = anchored(tokens, fed, rec)
+        steps_rec = {"compute_dtype": dname, "layers": layers,
+                     "tol": MODEL_TOL[dname], "faults": {},
+                     "steps": [_step(r, g, MODEL_TOL[dname])
+                               for r, g in zip(ref, got)]}
+        row["fault_slots"][dname] = {}
+        for name, (make, _) in MODEL_FAULTS.items():
+            bad, slots = anchored(tokens, fed, rec, make)
+            steps_rec["faults"][name] = [_diff(r, b) for r, b in
+                                         zip(ref, bad)]
+            row["fault_slots"][dname][name] = slots
+        row["runs"].append(steps_rec)
+        del rec, cp_cpu, cp_dev
+    # The short fault run, in its dtype only.
+    dname, fault = HYBRID_SHORT_FAULT
+    m = build_model(cfg.with_(compute_dtype=dname))
+    cp_cpu, cp_dev = m.compute_params(p_cpu), m.compute_params(p_dev)
+    short = tokens[:, :fault_prompt]
+    rec = []
+    ref, fed_short = run(m, cp_cpu, short, "cpu", None, _recording(rec))
+    row["short_fault"] = {"compute_dtype": dname, "fault": fault,
+                          "prompt": fault_prompt}
+    for name, make in (("sound", None), (fault, MODEL_FAULTS[fault][0])):
+        diffs: list = []
+        got, _ = run(m, cp_dev, short, dev, fed_short,
+                     _anchored(rec, m, cp_dev, diffs), make)
+        row["short_fault"][name] = {
+            **_per_slot(diffs, per_step, MODEL_TOL[dname]),
+            "logits": [_diff(r, g) for r, g in zip(ref, got)]}
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    for d in BOTH:
+        held = row["slot_logits"][d]
+        if held["breaks"]:
+            raise AssertionError(
+                f"model_hybrid {d}: an anchored slot's logits outside "
+                f"{MODEL_TOL[d]}: max {max(held['max_abs_err'])}, rms "
+                f"{max(held['rms_err'])}")
+    for res in row["runs"]:
+        d, tol = res["compute_dtype"], res["tol"]
+        for i, s in enumerate(res["steps"]):
+            if _breaks([s], tol) or not s["clear_tokens_equal"]:
+                raise AssertionError(f"model_hybrid {d} step {i}: the "
+                                     f"anchored logits {s} outside {tol} "
+                                     f"or clear greedy tokens differ")
+        for name, steps_ in res["faults"].items():
+            if (d, name) == HYBRID_SHORT_FAULT or \
+                    d not in MODEL_FAULTS[name][1]:
+                continue
+            if not (_breaks(steps_, tol)
+                    or row["fault_slots"][d][name]["breaks"]):
+                raise AssertionError(f"model_hybrid {d}: the fault {name} "
+                                     f"stays inside the limits {tol}")
+    sf, tol = row["short_fault"], MODEL_TOL[dname]
+    if sf["sound"]["breaks"] or _breaks(sf["sound"]["logits"], tol):
+        raise AssertionError(f"model_hybrid {dname} at prompt "
+                             f"{fault_prompt}: the sound anchored run "
+                             f"breaks {tol}")
+    if not (sf[fault]["breaks"] or _breaks(sf[fault]["logits"], tol)):
+        raise AssertionError(f"model_hybrid {dname} at prompt "
+                             f"{fault_prompt}: the fault {fault} stays "
+                             f"inside the limits {tol}")
+    return row
+
+
 # --------------------------- main --------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3453,8 +3823,9 @@ def main() -> int:
     timing["flash_attention"] = attn[ATTN_REPORTED]
 
     # Staged service phase (device pool off): the default path.
-    service_kw = dict(n_keys=1 << 20, batch=4096, n_mixed=256, gets=2048,
-                      puts=2048, deletes=64, scans=16, profile_submits=8)
+    service_kw = dict(n_keys=1 << 20, batch=4096, n_mixed=SERVICE_MIXED,
+                      gets=2048, puts=2048, deletes=64, scans=16,
+                      profile_submits=8)
     # Crash points for the recovery phase: the durable pair and the live
     # state after the staged load, the staged mixed part and the adaptive
     # mixed part (taken between parts, outside the timed windows).
@@ -3654,6 +4025,24 @@ def main() -> int:
     emit({"phase": "moe_seconds", "card": card, **seconds, "total": total,
           "box_s": MOE_BOX_S, "within_box": total <= MOE_BOX_S})
 
+    # The hybrid family: Zamba2-2.7B served at full width with the same
+    # defaults (K6 at head dim 80, H == KV, in the shared attention block
+    # after each group of 6 Mamba2 layers), then held card vs CPU at all
+    # HYBRID_MODEL_LAYERS; the two phases share HYBRID_BOX_S.
+    seconds = {}
+    t0 = time.perf_counter()
+    served_hybrid = serve_hybrid_phase(card)
+    seconds["serve_hybrid"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    hybrid_model_phase(get_config(HYBRID_ARCH), layers=HYBRID_MODEL_LAYERS)
+    seconds["model_hybrid"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    total = sum(seconds.values())
+    emit({"phase": "hybrid_seconds", "card": card, **seconds,
+          "total": total, "box_s": HYBRID_BOX_S,
+          "within_box": total <= HYBRID_BOX_S})
+
     # Card-vs-CPU model phase: Yi-6B at full width, 2 layers (depth cut),
     # in f32 and bf16 compute, with the faults it must see.
     t0 = time.perf_counter()
@@ -3674,7 +4063,8 @@ def main() -> int:
          "plain_ms": timing[k]["plain_ms"], "bound_ms": timing[k]["bound_ms"],
          "bound_by": timing[k]["bound_by"],
          "library_ms": timing[k]["library_ms"],
-         **({"launches_serve_moe": served_moe["launches"][k]}
+         **({"launches_serve_moe": served_moe["launches"][k],
+             "launches_serve_hybrid": served_hybrid["launches"][k]}
             if k == "flash_attention" else {})} for k in LAUNCHES]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,21 @@
-"""CausalLM for the dense and moe families, as in the reference
+"""CausalLM for the dense, moe and hybrid families, as in the reference
 (``repro.models.transformer``): the same param and cache trees (per-slot
 params stacked ``[n_super, ...]``), with the layer stack run as a Python
 loop over the stacked params (no ``scan``, no ``remat``: there is no
 backward pass here, and no mesh to constrain to). A moe slot is an
 attention block followed by ``moe_block`` on one shard, plus the dense
-residual FFN where ``moe_dense_ff`` is set.
+residual FFN where ``moe_dense_ff`` is set. The hybrid family (Zamba2) is
+groups of ``attn_every`` Mamba2 slots, each group followed by one
+attention + MLP block whose weights all groups share (``shared_attn``,
+one tree, not stacked) and whose KV cache each group has of its own
+(stacked ``[n_super, ...]``).
 
-The other families (ssm, hybrid, encdec, vlm) are not ported yet (ROADMAP
-Queue 1, "Rest of the serving model stack").
+Attention writes its K and V into the cache in place; ``mamba2_block``
+returns a new state, which ``_apply_slot`` copies into the stacked
+cache's views, or prefill state would never reach decode.
+
+The other families (ssm, i.e. xLSTM, encdec, vlm) are not ported yet
+(ROADMAP Queue 1, "Rest of the serving model stack").
 """
 from __future__ import annotations
 
@@ -18,11 +26,23 @@ from .layers import (P, embed, embed_spec, mlp, mlp_spec, rmsnorm,
                      rmsnorm_spec, softcap, unembed)
 from .moe import moe_block, moe_spec
 from .params import tree_map
+from .ssm import mamba2_block, mamba2_cache_spec, mamba2_spec
+
+# Leaves that the reference's forward reads in f32 whatever the compute
+# dtype, so that ``compute_params`` keeps them in f32: the RMSNorm scales
+# (``layers.rmsnorm``) and Mamba2's ``A_log``, ``dt_bias`` and gated-norm
+# ``norm`` (``models/ssm.py``, ``mamba2_block``). xLSTM's ``norm``, ``bf``
+# and ``b`` join them with its slice. Every other leaf the forward casts
+# to the compute dtype per call (Mamba2's ``D`` to ``y.dtype``, which is
+# the compute dtype), so casting it once at load gives the same values.
+F32_LEAVES = ("scale", "A_log", "dt_bias", "norm")
 
 
 # ----------------------------- slot layout -----------------------------------
 def block_slots(cfg) -> list:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family == "hybrid" and cfg.attn_every:
+        return ["mamba"] * cfg.attn_every          # + shared attn per group
+    if cfg.xlstm or cfg.family not in ("dense", "moe", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported (ROADMAP Queue 1, \"Rest "
             f"of the serving model stack\")")
@@ -41,6 +61,8 @@ def n_super(cfg) -> int:
 
 def _slot_spec(cfg, slot: str) -> dict:
     d = cfg.d_model
+    if slot == "mamba":
+        return {"ln": rmsnorm_spec(d), "mamba": mamba2_spec(cfg)}
     if slot == "attn_moe":
         spec = {"ln": rmsnorm_spec(d), "attn": attn_spec(cfg),
                 "ln2": rmsnorm_spec(d), "moe": moe_spec(cfg)}
@@ -52,6 +74,8 @@ def _slot_spec(cfg, slot: str) -> dict:
 
 
 def _slot_cache_spec(cfg, slot: str, batch: int, max_len: int):
+    if slot == "mamba":
+        return mamba2_cache_spec(cfg, batch)
     kv, hd = padded_heads(cfg)[1], cfg.resolved_head_dim
     if cfg.kv_layout != "sd":
         raise NotImplementedError(
@@ -65,6 +89,13 @@ def _slot_cache_spec(cfg, slot: str, batch: int, max_len: int):
 
 
 def _apply_slot(cfg, slot, p, x, positions, pos0, cache):
+    if slot == "mamba":
+        y, nc = mamba2_block(cfg, p["mamba"],
+                             rmsnorm(p["ln"], x, cfg.norm_eps), cache)
+        if cache is not None:                   # the new state, in place
+            for name, t in nc.items():
+                cache[name].copy_(t)
+        return x + y, cache
     window = cfg.window if slot == "attn:local" else 0
     h_in = rmsnorm(p["ln"], x, cfg.norm_eps)
     y, nc = attention_block(cfg, p["attn"], h_in, positions, pos0,
@@ -84,34 +115,43 @@ def _stack(n: int, tree):
 
 # ----------------------------- the model --------------------------------------
 class CausalLM:
-    """Decoder-only LM of the dense and moe families."""
+    """Decoder-only LM of the dense, moe and hybrid families."""
 
     def __init__(self, cfg):
         self.cfg = cfg
         self.slots = block_slots(cfg)
         self.n_super = n_super(cfg)
+        self.shared_attn = cfg.family == "hybrid" and cfg.attn_every > 0
 
     # -- specs ------------------------------------------------------------------
     def param_specs(self) -> dict:
         cfg = self.cfg
-        return {
+        spec = {
             "embed": embed_spec(cfg.padded_vocab, cfg.d_model),
             "final_norm": rmsnorm_spec(cfg.d_model),
             "blocks": [_stack(self.n_super, _slot_spec(cfg, s))
                        for s in self.slots],
         }
+        if self.shared_attn:
+            spec["shared_attn"] = _slot_spec(cfg, "attn:global")
+        return spec
 
     def cache_specs(self, batch: int, max_len: int) -> dict:
-        return {"blocks": [
+        cache = {"blocks": [
             _stack(self.n_super, _slot_cache_spec(self.cfg, s, batch,
                                                   max_len))
             for s in self.slots]}
+        if self.shared_attn:
+            cache["shared_attn"] = _stack(self.n_super, _slot_cache_spec(
+                self.cfg, "attn:global", batch, max_len))
+        return cache
 
     def compute_params(self, params) -> dict:
         """A copy of ``params`` with each weight that the forward casts to
-        the compute dtype cast once (every leaf but the norm scales, which
-        the forward reads in f32). Same values as the reference's per-call
-        ``.astype``; the same tensors when the dtypes agree."""
+        the compute dtype cast once: every leaf but those of
+        ``F32_LEAVES``, which the forward reads in f32. Same values as the
+        reference's per-call ``.astype``; the same tensors when the dtypes
+        agree."""
         dt = getattr(torch, self.cfg.compute_dtype)
 
         def walk(tree, key=""):
@@ -119,18 +159,28 @@ class CausalLM:
                 return {k: walk(v, k) for k, v in tree.items()}
             if isinstance(tree, list):
                 return [walk(v, key) for v in tree]
-            return tree if key == "scale" else tree.to(dt)
+            return tree if key in F32_LEAVES else tree.to(dt)
 
         return walk(params)
 
     # -- forward ------------------------------------------------------------------
     def _run_blocks(self, params, x, positions, pos0: int, cache):
+        """Each group's slots, then (hybrid) the shared attention block on
+        ``params["shared_attn"]`` with the group's own KV cache. Every
+        slot writes its cache views in place."""
+        def view(tree, li):
+            return {n: t[li] for n, t in tree.items()}
+
         for li in range(self.n_super):
             for i, slot in enumerate(self.slots):
                 p = tree_map(lambda t: t[li], params["blocks"][i])
-                c = (None if cache is None else
-                     {n: t[li] for n, t in cache["blocks"][i].items()})
+                c = None if cache is None else view(cache["blocks"][i], li)
                 x, _ = _apply_slot(self.cfg, slot, p, x, positions, pos0, c)
+            if self.shared_attn:
+                c = None if cache is None else view(cache["shared_attn"], li)
+                x, _ = _apply_slot(self.cfg, "attn:global",
+                                   params["shared_attn"], x, positions, pos0,
+                                   c)
         return x
 
     def _logits(self, params, x):

@@ -1,6 +1,7 @@
-"""Model zoo: build an architecture from its config. The dense and moe
-families are ported; ``CausalLM`` refuses the others (ROADMAP Queue 1,
-"Rest of the serving model stack" brings them)."""
+"""Model zoo: build an architecture from its config. The dense, moe and
+hybrid (Zamba2: Mamba2 groups with a shared attention block) families are
+ported; ``CausalLM`` refuses the others, ssm (xLSTM), vlm and encdec
+(ROADMAP Queue 1, "Rest of the serving model stack" brings them)."""
 from __future__ import annotations
 
 from .transformer import CausalLM

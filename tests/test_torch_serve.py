@@ -1,8 +1,10 @@
 """The serving path on the CPU against the reference: the model (reduced
 Yi-6B, reduced Gemma-2-27B with local/global layers, window 32 and both
-softcaps, reduced Yi-6B with padded heads and a padded vocab, and the moe
+softcaps, reduced Yi-6B with padded heads and a padded vocab, the moe
 family: reduced Granite-3.0-1B-A400M and reduced Arctic-480B with its
-dense residual FFN) with the reference's own weights carried across, the
+dense residual FFN, and the hybrid family: reduced Zamba2-2.7B, two groups
+of three Mamba2 layers, each followed by the shared attention block) with
+the reference's own weights carried across, the
 tuner's Newton step, the KV pool with its HBM tuner, and the serve entry
 point.
 
@@ -53,7 +55,7 @@ PADDED = {"head_pad_to": 8, "vocab_size": 250}
 @pytest.fixture(scope="module", params=["yi-6b", "gemma2-27b",
                                         "yi-6b:padded",
                                         "granite-moe-1b-a400m",
-                                        "arctic-480b"])
+                                        "arctic-480b", "zamba2-2.7b"])
 def pair(request):
     """(reference model, its params, port model, the same params)."""
     arch, _, variant = request.param.partition(":")
@@ -264,4 +266,9 @@ def test_serve_main_matches_reference(requests, capsys):
 def test_serve_main_moe_matches_reference(capsys):
     _, out = _serve_both(["--reduced", "--arch", "granite-moe-1b-a400m"],
                          capsys)
+    assert "[governor]" in out
+
+
+def test_serve_main_hybrid_matches_reference(capsys):
+    _, out = _serve_both(["--reduced", "--arch", "zamba2-2.7b"], capsys)
     assert "[governor]" in out
