@@ -112,13 +112,16 @@
    store at that point; some point must recover from a checkpoint.
 10. Workers phase: K1 and K2 from 4 threads at once through one backend,
     equal to the same calls made alone and every launch counted; then
-    the staged phase's stream again with 2 maintenance workers, held to
-    the staged phase's results, fingerprint, IOStats (but ``bg_*``),
-    buffer-cache counts and WAL bytes; the pool must consume prepares and
-    no prepare may raise. Prints the pool's counts, ``bg_segments``,
-    ``bg_overlap_us``, the launches and the mixed submits per second
-    beside the staged phase's. Then the replay stream with 0 and 4
-    workers on the card and 4 on the CPU, all three identical. The three
+    the staged phase's stream again with 2 maintenance workers, its load
+    and first ``FILES_SUBMITS`` mixed submits (the cut, under
+    ``reduced``), held to the staged phase's results, fingerprint,
+    IOStats (but ``bg_*``), buffer-cache counts and WAL bytes at that
+    submit; the pool must consume prepares and no prepare may raise.
+    Prints the pool's counts, ``bg_segments``, ``bg_overlap_us``, the
+    launches and the mixed submits per second beside the staged phase's.
+    Then ``WORKERS_REPLAY_SUBMITS`` submits of the replay stream with 0
+    and 4 workers on the card and 4 on the CPU, all three identical. The
+    three
     phases' seconds follow (``"recovery_workers_seconds"``).
 11. Files phase (``"phase": "files"``), in a fresh temporary directory
     removed at its end; every row names the card and the filesystem
@@ -137,7 +140,8 @@
     (``tests/torch_crash_child.py``, all started together) runs the kill
     workload on the card on files and SIGKILLs itself; each plane
     recovered on the card equals the memory-medium oracle at its
-    boundary. ``policies``: the replay store (192 KB log cap) under
+    boundary. ``policies``: the replay store (192 KB log cap,
+    ``FILES_POLICY_SUBMITS`` submits) under
     ``per_record``, ``per_batch`` and ``group`` on the card and on the
     CPU: state, results and every byte of the plane after ``sync()``
     equal (the checkpoints' fsync clock aside, ``plane_digest``), fsync
@@ -187,13 +191,37 @@
    difference within ``MODEL_TOL`` at every step, greedy tokens equal
    wherever the CPU's top-2 gap exceeds twice the largest; each fault of
    ``MODEL_FAULTS`` run on the card in place of K6 must break a limit.
+16. Train phase (``"kernels_attention_bwd"``, ``"train"``,
+   ``"train_compare"``, ``"train_checkpoint"``, then ``"train_seconds"``
+   against ``TRAIN_BOX_S``): K6's forward with its log-sum-exp and its
+   backward (``flash_attention_bwd_prep``, ``_dkv``, ``_dq``) against
+   their plain versions in bf16 and f32 (``BWD_TOL``, ``LSE_TOL``; the
+   forward's output with the lse equal to the serving call's) at every
+   causal ``ATTN_CASES`` shape and MiniCPM-2B's training shapes (timed:
+   the whole backward's call, each kernel's call and device time, their
+   bounds, the plain version and SDPA's backward) and every causal
+   ``ATTN_EDGES`` case; ``launch.train.main`` at MiniCPM-2B's full width
+   (40 layers, f32 params, bf16 compute, remat "full") at the entry
+   point's defaults (batch 8 x 64, 8 steps) and at one 4096-token sequence (4
+   steps), every loss finite and each kernel launched as the layers and
+   remat say, its last step profiled; one train step card vs CPU at full
+   width cut to 2 layers in f32 and bf16 (``TRAIN_F32_TOL``,
+   ``TRAIN_BF16_MULT`` against an f64 run on the CPU, in bf16 the grad
+   norm against the norm of the card's own gradients, the update within
+   ``TRAIN_UPDATE_TOL`` of AdamW on the card's gradients), and each of
+   ``TRAIN_FAULTS`` in place of the backward breaking the f32 limits;
+   and at reduced width a checkpoint restart equal to the straight run
+   (``CKPT_TOL``), restored on the CPU to the bit.
 
 Prints JSON lines; the ``kernels`` line lists each kernel with its launch
 count on its main path (K1, K2, K5: the staged service phase; K3 and K4:
 the pool phase; K6: the serve phase, ``launches_serve_moe`` the
-serve_moe phase and ``launches_serve_hybrid`` the serve_hybrid phase),
-its time, its bound and its
-yardsticks (K5's at its tier form's timed shape). The last line is
+serve_moe phase, ``launches_serve_hybrid`` the serve_hybrid phase and
+``launches_train`` the train phase's default run; K6's backward kernels:
+that run, and ``launches_train_seq4096`` the 4096-token run), its time,
+its bound and its
+yardsticks (K5's at its tier form's timed shape; the backward's at
+MiniCPM-2B's default shape, ``BWD_REPORTED``). The last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a GPU, and when
 any phase fails.
 """
@@ -241,7 +269,8 @@ from repro_torch.core.storage_io import (  # noqa: E402
 from repro_torch.core.storage_io.format import read_frames  # noqa: E402
 from repro_torch.core.storage_io.manifest_files import (  # noqa: E402
     TAG_CHECKPOINT)
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels._launch import (  # noqa: E402
     LAUNCHES, expect, stream_of)
@@ -250,6 +279,7 @@ from repro_torch.kernels.bloom import bloom as bloom_k  # noqa: E402
 from repro_torch.kernels.lookup import lookup as lookup_k  # noqa: E402
 from repro_torch.kernels.merge import merge as merge_k  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as train_entry  # noqa: E402
 from repro_torch.models import attention as port_attention  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import build_model, init_params  # noqa: E402
@@ -260,6 +290,10 @@ from repro_torch.runtime.hbm_arbiter import (  # noqa: E402
     HBMArbiter, HBMArbiterConfig)
 from repro_torch.runtime.hbm_tuner import HBMGovernor  # noqa: E402
 from repro_torch.runtime.kvcache import KVPoolConfig, PagedKVPool  # noqa: E402
+from repro_torch.runtime import training  # noqa: E402
+from repro_torch.runtime.checkpoint import Checkpointer  # noqa: E402
+from repro_torch.models.params import flatten  # noqa: E402
+from repro_torch.utils.flops import attention_layer_count  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 OPS_PER_S = 67e12                # H100 SXM peak outside the tensor cores
@@ -294,6 +328,11 @@ SOURCES = {
                     "src/repro/kernels/bloom/bloom.py:179"),
     "flash_attention": ("src/repro_torch/csrc/attention.cu",
                         "src/repro/kernels/attention/flash.py:66"),
+    **{k: ("src/repro_torch/csrc/attention_bwd.cu",
+           "jax.vjp of repro.models.attention.full_attention "
+           "(src/repro/models/attention.py:224; no Pallas backward)")
+       for k in ("flash_attention_bwd_prep", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq")},
 }
 # K2 is held exactly at these key counts, on both sides of the size at
 # which bloom.cu leaves its shared path for its global one
@@ -1956,6 +1995,13 @@ RECOVERY_HELD_GETS = 4
 # The workers phase's pool, and the card-vs-CPU worker replay's.
 WORKERS = 2
 REPLAY_WORKERS = 4
+# Depth of the workers phase, cut when the train phase came so that the
+# whole script stays within 700 s: the staged stream runs its first
+# FILES_SUBMITS mixed submits (of SERVICE_MIXED; held to the staged
+# phase's state at that submit, its "mark"), and the replay stream
+# WORKERS_REPLAY_SUBMITS submits (of 190). 128 mixed submits took 33.8 s,
+# the three 190-submit replays 9.1 s (on an NVIDIA H100 80GB HBM3 at 700 W).
+WORKERS_REPLAY_SUBMITS = 95
 # IOStats that say where wall time went and differ with workers on.
 BG_FIELDS = ("bg_segments", "bg_overlap_us")
 
@@ -2217,14 +2263,16 @@ def threaded_k1_k2(n_threads: int = 4, dev="cuda") -> dict:
             "launches": {k: launches[k] for k in want}, "identical": True}
 
 
-def workers_phase(card: str, staged: dict, staged_end: dict,
+def workers_phase(card: str, staged: dict, staged_mark: dict,
                   service_kw: dict, dev="cuda", cfg_kw=None,
-                  n_replay: int = 190) -> dict:
-    """The staged phase's stream again (same seed, same submits) with
-    ``WORKERS`` maintenance workers: every Get and Scan result, the
-    fingerprint, every IOStats field but ``bg_*``, the buffer cache's
-    counts and the WAL's encoded records equal the staged phase's; the
-    pool must consume prepares and no prepare may raise. Then the replay
+                  n_replay: int = WORKERS_REPLAY_SUBMITS) -> dict:
+    """The staged phase's stream again (same seed, same submits, its first
+    ``FILES_SUBMITS`` mixed submits) with ``WORKERS`` maintenance workers:
+    every Get and Scan result, the fingerprint, every IOStats field but
+    ``bg_*``, the buffer cache's counts and the WAL's encoded records equal
+    the staged phase's at that submit (``staged["mark"]``,
+    ``staged_mark``); the pool must consume prepares and no prepare may
+    raise. Then the replay
     stream on the card with 0 and ``REPLAY_WORKERS`` workers and on the
     CPU with ``REPLAY_WORKERS``: all three identical (``bg_*`` aside).
     ``dev``, ``cfg_kw`` (the staged phase's store fields) and ``n_replay``
@@ -2247,7 +2295,8 @@ def workers_phase(card: str, staged: dict, staged_end: dict,
     with watch_prepares(errors):
         out = run_service(dev, cfg_kw={
             **(cfg_kw or {}), "max_log_bytes": SERVICE_MAX_LOG_BYTES,
-            "maintenance_workers": WORKERS}, on_part=on_part, **service_kw)
+            "maintenance_workers": WORKERS}, on_part=on_part,
+            **{**service_kw, "n_mixed": FILES_SUBMITS})
     _sync(dev)
     out["launches"] = dict(LAUNCHES)
     out["wall_s"] = time.perf_counter() - t0
@@ -2260,8 +2309,11 @@ def workers_phase(card: str, staged: dict, staged_end: dict,
            "submits_per_s": {"workers": out["mixed"]["submits_per_s"],
                              "staged": staged["mixed"]["submits_per_s"]},
            "load_s": out["load_s"], "mixed_wall_s": out["mixed_wall_s"],
+           "reduced": {"mixed_submits": [FILES_SUBMITS,
+                                         service_kw["n_mixed"]],
+                       "replay_submits": [n_replay, 190]},
            "primitives_total": out["primitives_total"], "threads": threads}
-    want = staged["mixed"]
+    want = staged["mark"]
     for what, x, y in (("results", out["mixed"]["digest"], want["digest"]),
                        ("IOStats but bg_*", _masked(io),
                         _masked(want["iostats"])),
@@ -2271,8 +2323,9 @@ def workers_phase(card: str, staged: dict, staged_end: dict,
             emit(row)
             raise AssertionError(f"workers phase differs from the staged "
                                  f"phase in {what}")
-    same_durable({k: end[k] for k in staged_end}, staged_end,
-                 "workers phase against the staged phase")
+    same_durable({k: end[k] for k in staged_mark}, staged_mark,
+                 f"workers phase against the staged phase at submit "
+                 f"{FILES_SUBMITS}")
     t1 = time.perf_counter()
     zero_counts()
     rep = {"card_0": replay(dev, n_submits=n_replay)}
@@ -2312,8 +2365,11 @@ def workers_phase(card: str, staged: dict, staged_end: dict,
 
 # --------------------------- the files medium --------------------------------
 # The files phase drives the staged stream's load and its first
-# FILES_SUBMITS mixed submits (of SERVICE_MIXED) on the files medium.
-FILES_SUBMITS = 64
+# FILES_SUBMITS mixed submits (of SERVICE_MIXED) on the files medium: cut
+# from 64 to 32 when the train phase came, so that the whole script stays
+# within 700 s (the 64 submits took 34.5 s on 9p, and the files phase
+# 126.3 s of its 120 s box, with an NVIDIA H100 80GB HBM3 at 700 W).
+FILES_SUBMITS = 32
 # (shards, boundary) of the kill workload at which a child kills itself.
 FILES_KILLS = ((1, 5), (1, 17), (4, 11), (4, 23))
 # The four parts' time box, in seconds of command time.
@@ -2553,7 +2609,14 @@ def files_sigkill(card: str, fs: dict, base: str, dev="cuda") -> dict:
     return row
 
 
-def files_policies(card: str, fs: dict, base: str, n_submits: int = 190,
+# The replay store's submits under each fsync policy (of the replay's 190),
+# cut when the train phase came (six 190-submit replays took 28.6 s on 9p,
+# with an NVIDIA H100 80GB HBM3 at 700 W).
+FILES_POLICY_SUBMITS = 95
+
+
+def files_policies(card: str, fs: dict, base: str,
+                   n_submits: int = FILES_POLICY_SUBMITS,
                    devs=("cuda", "cpu")) -> dict:
     """The card-vs-CPU replay's small store (192 KB log cap: log-triggered
     flushes, checkpoints, truncation) on the files medium under each
@@ -3773,6 +3836,578 @@ def hybrid_model_phase(cfg, *, layers: int, batch: int = 4,
     return row
 
 
+# --------------------------- train phase: K6's backward, MiniCPM-2B ----------
+TRAIN_ARCH = "minicpm-2b"
+# Time box of the train phase's five parts together, stated before its
+# first run; reported, as FILES_BOX_S is.
+TRAIN_BOX_S = 150.0
+# K6's backward against its plain version on the same inputs (the kernel
+# forward's o and lse): per gradient, the largest difference over the
+# largest value of the plain version's gradient and the relative RMS
+# difference. Both compute in f32 from the same inputs, in other orders;
+# bf16 also rounds each gradient to bf16 once. About 6x the sound
+# kernels' largest readings on an NVIDIA H100 80GB HBM3 at 700 W (f32
+# 7.7e-6 and 3.5e-6; bf16 2.3e-3 and 1.3e-4, Yi-6B's 4096-token dK;
+# PERF.md section 6).
+BWD_TOL = {"float32": {"max_rel": 5e-5, "rel_rms": 2e-5},
+           "bfloat16": {"max_rel": 2e-2, "rel_rms": 2e-3}}
+# The forward's log-sum-exp against the plain version's, absolute, on the
+# rows that keep a key (1.9e-6 read).
+LSE_TOL = 1e-5
+MINICPM_HEADS = {"h": 36, "kv": 36, "hd": 64}
+# The timed shapes: every causal (prefill) case of ATTN_CASES and
+# MiniCPM-2B's training shapes, the entry point's defaults (batch 8 x 64) and
+# one 4096-token sequence; and, untimed, every causal ATTN_EDGES case.
+BWD_CASES = [*[(n, s) for n, s in ATTN_CASES if s["causal"]],
+             ("minicpm_train_b8_s64", dict(b=8, sq=64, sk=64, causal=True,
+                                           **MINICPM_HEADS)),
+             ("minicpm_train_b1_s4096", dict(b=1, sq=4096, sk=4096,
+                                             causal=True, **MINICPM_HEADS))]
+BWD_EDGES = [(n, s) for n, s in ATTN_EDGES if s["causal"]]
+BWD_KERNELS = ("flash_attention_bwd_prep", "flash_attention_bwd_dkv",
+               "flash_attention_bwd_dq")
+# The kernels line reports the main path's call: MiniCPM-2B at the
+# entry point's defaults, in the compute dtype.
+BWD_REPORTED = "minicpm_train_b8_s64/bfloat16"
+# The full-width runs of launch.train.main: the entry point's defaults for 8
+# steps, then one 4096-token sequence for 4.
+TRAIN_RUNS = (("defaults", ["--batch", "8", "--seq", "64", "--steps", "8"]),
+              ("seq4096", ["--batch", "1", "--seq", "4096", "--steps", "4"]))
+# The run's step that runs under the profiler (the last: the median of
+# the steps after the first moves by at most one place).
+TRAIN_PROFILE_AT = {"defaults": 7, "seq4096": 3}
+# The card-vs-CPU step: MiniCPM-2B at full width cut to 2 layers
+# (405,220,608 params), batch 4 x 64, launch/train.py's TrainConfig at 100
+# steps. f32: the loss to 1e-5 relative, the grad norm to 1e-4 relative
+# and each leaf's gradient to 1e-4 relative RMS; bf16: the loss and each
+# leaf's gradient within TRAIN_BF16_MULT times the CPU's own bf16 reading
+# against an f64 run on the CPU (as HYBRID_DRIFT_MULT), the grad norm as
+# below. In both, the
+# params after the update within TRAIN_UPDATE_TOL (max abs) of AdamW run
+# on the CPU on the card's own gradients (the update from the card's
+# params and the CPU's differ on elements whose gradient is within a few
+# eps of 0, so those are reported, not held). Fixed before the first
+# chip run; each of TRAIN_FAULTS, run on the card in place of the
+# backward in f32, must break the f32 limits. One change after a failing
+# run: in bf16 the grad norm is no longer held to 4x the CPU's own
+# |norm(bf16) - norm(f64)|, a single draw of rounding noise that can
+# cancel toward 0 (1.37e-6 relative on an NVIDIA H100 80GB HBM3 at 700
+# W, a limit of 5.5e-6 against the card's 3.88e-5, while every leaf's
+# gradient read 0.65-0.84 of its limit); it is held to the f32 limit
+# against global_norm of the card's own gradients on the CPU, and its
+# difference from the CPU's bf16 norm is reported with that ratio. The
+# gradients it is the norm of stay held per leaf.
+TRAIN_CMP = {"layers": 2, "batch": 4, "seq": 64}
+TRAIN_F32_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "grad_rel_rms": 1e-4}
+TRAIN_BF16_MULT = 4.0
+TRAIN_UPDATE_TOL = 1e-6
+# The checkpoint restart at reduced width, as tests/test_runtime.py:58-60.
+CKPT_TOL = {"rtol": 1e-5, "atol": 1e-6}
+
+
+def _bwd_inputs(shape: dict, dname: str, gen):
+    q, k, v = _attn_inputs(shape, getattr(torch, dname), gen)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    return q, k, v, do
+
+
+def _grad_errors(got, want) -> dict:
+    out = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        d = (g.float() - w.float()).abs()
+        top, worst = float(w.float().abs().max()), float(d.max())
+        out[name] = {"max_abs_err": worst,
+                     "max_rel": worst / top if top else float(worst > 0),
+                     "rel_rms": _rms(d) / max(_rms(w), 1e-30)}
+    return out
+
+
+def _held_bwd(name: str, shape: dict, dname: str, gen):
+    """K6's forward with its lse, then the backward kernels and their plain
+    version on its output; raises beyond BWD_TOL or LSE_TOL, or if the
+    forward's output with the lse differs from the serving call's."""
+    q, k, v, do = _bwd_inputs(shape, dname, gen)
+    kw = _attn_kw(shape)
+    o, lse = attn_k.flash_attention_fwd(q, k, v, **kw)
+    if not torch.equal(o, attn_k.flash_attention(q, k, v, **kw)):
+        raise AssertionError(f"flash_attention {name} {dname}: the output "
+                             f"with the lse differs from the serving call's")
+    lse_plain = attn_k.flash_attention_fwd_plain(q, k, v, **kw)[1]
+    kept = lse_plain > -1e30
+    lse_err = float((lse - lse_plain)[kept].abs().max())
+    got = attn_k.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = attn_k.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    delta = attn_k.bwd_prep(o, do)
+    delta_plain = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    torch.cuda.synchronize()
+    err = _grad_errors(got, want)
+    d = float((delta - delta_plain).abs().max())
+    err["delta"] = {"max_abs_err": d, "max_rel": d / float(
+        delta_plain.abs().max()), "rel_rms": _rms(delta - delta_plain)
+        / _rms(delta_plain)}
+    tol = BWD_TOL[dname]
+    for g, e in err.items():
+        if not (e["max_rel"] <= tol["max_rel"]
+                and e["rel_rms"] <= tol["rel_rms"]):
+            raise AssertionError(f"flash_attention backward {name} {dname} "
+                                 f"{g}: {e} outside {tol}")
+    if not lse_err <= LSE_TOL:
+        raise AssertionError(f"flash_attention {name} {dname}: lse err "
+                             f"{lse_err} > {LSE_TOL}")
+    return (q, k, v, do, o, lse), {"lse_max_err": lse_err, "errors": err}
+
+
+def _bwd_bounds(shape: dict, esize: int, dname: str) -> dict:
+    """Each backward kernel's bound and the whole backward's: the bytes it
+    must move (its inputs read once, its outputs written once; of k and v
+    the rows some query keeps) at the memory rate, or its operations on
+    the kept pairs at the peak rate of the dtype (bf16: the tensor cores):
+    dK/dV 8 hd (S, dP, dK, dV), dQ 6 hd (S, dP, dQ), the backward 10 hd
+    (S, dP, dQ, dK, dV once each); D 2 hd a row outside the tensor cores."""
+    b, sq, sk, h, kvh, hd = (shape[x] for x in ("b", "sq", "sk", "h", "kv",
+                                                "hd"))
+    kw = _attn_kw(shape)
+    rows_kv = min(sq, sk) if kw["causal"] else sk
+    qo = b * sq * h * hd * esize                 # one [B, Sq, H, hd]
+    kv_in = b * rows_kv * kvh * hd * esize       # one of k, v as read
+    kv_out = b * sk * kvh * hd * esize           # one of dk, dv
+    rows = b * h * sq * 4                        # lse or D
+    pairs = _kept_pairs(sq, sk, kw["causal"], kw["window"]) * b * h
+    rate = BF16_OPS_PER_S if dname == "bfloat16" else OPS_PER_S
+    return {
+        "flash_attention_bwd_prep": bound(2 * qo + rows, 2 * hd * b * sq * h),
+        "flash_attention_bwd_dkv": bound(2 * qo + 2 * kv_in + 2 * rows
+                                         + 2 * kv_out, 8 * hd * pairs, rate),
+        "flash_attention_bwd_dq": bound(2 * qo + 2 * kv_in + 2 * rows + qo,
+                                        6 * hd * pairs, rate),
+        "backward": bound(3 * qo + 2 * kv_in + rows + qo + 2 * kv_out,
+                          10 * hd * pairs, rate),
+        "kept_pairs": pairs}
+
+
+def check_attention_bwd(gen) -> dict:
+    """K6's backward against its plain version at every BWD_CASES shape
+    (timed) and BWD_EDGES shape (not timed), in bf16 and f32. Times the
+    whole backward's call, each kernel's call and device time, the plain
+    version and SDPA's backward (same mask; none with a softcap)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    out, edges = {}, {}
+    for name, shape in BWD_EDGES:
+        for dname in ("bfloat16", "float32"):
+            edges[f"{name}/{dname}"] = {"shape": shape,
+                                       **_held_bwd(name, shape, dname, gen)[1]}
+    for name, shape in BWD_CASES:
+        kw = _attn_kw(shape)
+        for dname in ("bfloat16", "float32"):
+            (q, k, v, do, o, lse), err = _held_bwd(name, shape, dname, gen)
+            reps = 5 if shape["sq"] >= 4096 else 25
+            delta = attn_k.bwd_prep(o, do)
+            calls = {
+                "flash_attention_bwd_prep": lambda: attn_k.bwd_prep(o, do),
+                "flash_attention_bwd_dkv": lambda: attn_k.bwd_dkv(
+                    q, k, v, do, lse, delta, **kw),
+                "flash_attention_bwd_dq": lambda: attn_k.bwd_dq(
+                    q, k, v, do, lse, delta, **kw)}
+            whole = lambda: attn_k.flash_attention_bwd(  # noqa: E731
+                q, k, v, o, lse, do, **kw)
+            row = {"shape": shape, **err, "tol": BWD_TOL[dname],
+                   "ms": cuda_ms(whole, reps),
+                   "call_ms": {kn: cuda_ms(fn, reps)
+                               for kn, fn in calls.items()},
+                   "device_ms": {kn: kernel_device_ms(whole, kn + "_kernel",
+                                                      reps)
+                                 for kn in BWD_KERNELS},
+                   "plain_ms": cuda_ms(lambda: attn_k.flash_attention_bwd_plain(
+                       q, k, v, o, lse, do, **kw), reps),
+                   "plain_prep_ms": cuda_ms(lambda: (
+                       do.float() * o.float()).sum(-1), reps),
+                   **_bwd_bounds(shape, q.element_size(), dname),
+                   "library_ms": None}
+            if not kw["softcap"]:
+                mask = (attn_k.keep_mask(shape["sq"], shape["sk"],
+                                         kw["window"], q.device)
+                        if kw["window"] else None)
+                qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                              for t in (q, k, v))
+                lib_out = sdpa(qt, kt, vt, attn_mask=mask,
+                               is_causal=kw["causal"] and mask is None,
+                               scale=shape["hd"] ** -0.5, enable_gqa=True)
+                dot = do.transpose(1, 2)
+                row["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                    lib_out, (qt, kt, vt), dot, retain_graph=True), reps)
+                del qt, kt, vt, lib_out
+            out[f"{name}/{dname}"] = row
+            del q, k, v, do, o, lse, delta
+            torch.cuda.empty_cache()
+    return {"cases": out, "edges": edges}
+
+
+def _profiled(at: int, out: dict):
+    """A wrapper of ``make_train_step`` whose step number ``at`` runs under
+    the CUDA profiler (device activity only); ``out`` gets the step's wall
+    ms, device ms, busy share, K6's forward and backward shares and the
+    ten largest device times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def make(orig):
+        def mk(*a, **kw):
+            step, calls = orig(*a, **kw), [0]
+
+            def fn(*sa):
+                calls[0] += 1
+                if calls[0] - 1 != at:
+                    return step(*sa)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t = time.perf_counter()
+                    res = step(*sa)
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t) * 1e3
+                dev: dict = {}
+                for e in prof.key_averages():
+                    us = getattr(e, "self_device_time_total", 0.0)
+                    if us > 0:
+                        dev[e.key] = dev.get(e.key, 0.0) + us
+                total = sum(dev.values()) / 1e3
+                share = lambda pat: (sum(  # noqa: E731
+                    v for k, v in dev.items() if pat in k) / 1e3 / total
+                    if total else None)
+                top = sorted(dev.items(), key=lambda kv: -kv[1])[:10]
+                out.update({
+                    "step": at, "wall_ms": wall, "device_ms": total,
+                    "device_busy_share": total / wall,
+                    "flash_attention_share": share("flash_attention_kernel"),
+                    "flash_attention_bwd_share": share("flash_attention_bwd"),
+                    "device_ms_top": [[k[:100], v / 1e3] for k, v in top]})
+                return res
+            return fn
+        return mk
+    return make
+
+
+def train_run(card: str, name: str, argv: list, profile_at=None) -> dict:
+    """``launch.train.main`` at MiniCPM-2B's full width on the card: every
+    loss finite; K6's forward launched once a layer and step, twice with
+    remat "full" (the recompute), and each backward kernel once a layer
+    and step. With ``profile_at``, that step runs under the profiler."""
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    steps = int(argv[argv.index("--steps") + 1])
+    full = ["--arch", TRAIN_ARCH, "--device", "cuda", "--seed", "0",
+            "--log-every", "1", *argv]
+    buf = io.StringIO()
+    prof: dict = {}
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(contextlib.redirect_stdout(buf))
+        if profile_at is not None:
+            stack.enter_context(patched(train_entry, "make_train_step",
+                                        _profiled(profile_at, prof)))
+        losses = train_entry.main(full)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    lines = buf.getvalue().splitlines()
+    tag = "[train] card "
+    stats = json.loads([ln for ln in lines if ln.startswith(tag)][-1][
+        len(tag):])
+    layers = sum(n for n, _ in attention_layer_count(cfg))
+    fwd_per_step = layers * (2 if cfg.remat == "full" else 1)
+    row = {"phase": "train", "run": name, "card": card, "argv": full,
+           "wall_s": wall, "losses": losses, "remat": cfg.remat,
+           "attention_layers": layers, "launches": launches,
+           "want_launches": {"flash_attention": fwd_per_step * steps,
+                             **{k: layers * steps for k in BWD_KERNELS}},
+           **stats, "profile": prof or None, "lines": lines}
+    emit(row)
+    if not all(np.isfinite(losses)) or len(losses) != steps:
+        raise AssertionError(f"train {name}: losses {losses}")
+    for k, want in row["want_launches"].items():
+        if launches[k] != want:
+            raise AssertionError(f"train {name}: {k} launched {launches[k]} "
+                                 f"times, not {want}")
+    return row
+
+
+def _fault_dq_without_diagonal(f):
+    """The backward with the diagonal key's term left out of dQ."""
+    def fn(q, k, v, o, lse, do, *, causal, window, softcap):
+        dq, dk, dv = attn_k.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, causal=causal, window=window,
+            softcap=softcap)
+        g = q.shape[2] // k.shape[2]
+        n = min(q.shape[1], k.shape[1])
+        qf, of, df = (t[:, :n].float() for t in (q, o, do))
+        kf, vf = (t[:, :n].float().repeat_interleave(g, 2) for t in (k, v))
+        scale = q.shape[-1] ** -0.5
+        s = (qf * kf).sum(-1) * scale                     # [B, n, H]
+        t = torch.tanh(s / softcap) if softcap else None
+        if softcap:
+            s = softcap * t
+        p = torch.exp(s - lse[..., :n].transpose(1, 2))
+        ds = p * ((df * vf).sum(-1) - (df * of).sum(-1))
+        if softcap:
+            ds = ds * (1 - t * t)
+        dq = dq.float()
+        dq[:, :n] -= scale * ds[..., None] * kf
+        return dq.to(q.dtype), dk, dv
+    return fn
+
+
+def _fault_dkv_without_last_tile(f):
+    """The backward with the last tile of 32 keys (the kernels' kBK) left
+    without dK and dV."""
+    def fn(q, k, v, o, lse, do, **kw):
+        dq, dk, dv = attn_k.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                      **kw)
+        last = (k.shape[1] - 1) // 32 * 32
+        dk[:, last:] = 0
+        dv[:, last:] = 0
+        return dq, dk, dv
+    return fn
+
+
+def _fault_lse_without_log_l(f):
+    """The forward's lse without log l (the row max alone)."""
+    def fn(q, k, v, *, causal, window, softcap):
+        o, _ = f(q, k, v, causal=causal, window=window, softcap=softcap)
+        m = attn_k._plain(q, k, v, causal, window, softcap)[1]
+        return o, m.squeeze(-1).contiguous()
+    return fn
+
+
+TRAIN_FAULTS = {
+    "dq_without_diagonal_key": ("flash_attention_bwd",
+                                _fault_dq_without_diagonal),
+    "dkv_without_last_key_tile": ("flash_attention_bwd",
+                                  _fault_dkv_without_last_tile),
+    "lse_without_log_l": ("flash_attention_fwd", _fault_lse_without_log_l),
+}
+
+
+def _leaf_rel(a, b, dev: str = "cuda") -> list:
+    """Per leaf (JAX's order): RMS(a - b) / RMS(b), in f64 on ``dev``."""
+    out = []
+    for x, y in zip(flatten(a), flatten(b)):
+        x, y = (t.detach().to(dev, torch.float64) for t in (x, y))
+        out.append(_rms(x - y) / max(_rms(y), 1e-300))
+    return out
+
+
+def _step_readings(model, params, opt, batch, tcfg):
+    """(loss, grads, grad norm, params after the update) of one step."""
+    loss, grads = training.loss_and_grads(model, params, batch)
+    with torch.no_grad():
+        after, _, met = training.adamw_update(params, grads, opt, tcfg)
+    return float(loss), grads, float(met["grad_norm"]), after
+
+
+def _train_breaks(r: dict) -> list:
+    tol = TRAIN_F32_TOL
+    bad = []
+    if not r["loss_rel"] <= tol["loss"]:
+        bad.append("loss")
+    if not r["grad_norm_rel"] <= tol["grad_norm"]:
+        bad.append("grad_norm")
+    if not max(r["grad_rel_rms"]) <= tol["grad_rel_rms"]:
+        bad.append("grads")
+    return bad
+
+
+def train_compare(dev: str = "cuda") -> dict:
+    """One train step of MiniCPM-2B at full width cut to
+    TRAIN_CMP["layers"], on the card and on the CPU from the same params,
+    in f32 and bf16 compute, with an f64 run on the CPU for the bf16
+    limits; then each of TRAIN_FAULTS on the card in f32."""
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH).with_(num_layers=TRAIN_CMP["layers"])
+    tcfg = training.TrainConfig(learning_rate=1e-3, total_steps=100,
+                                warmup_steps=5)
+    spec = build_model(cfg).param_specs()
+    p_dev = init_params(spec, torch.Generator(dev).manual_seed(0),
+                        cfg.param_dtype, dev)
+    o_dev = init_params(training.opt_state_specs(spec, cfg), None,
+                        cfg.optstate_dtype, dev)
+    p_cpu, o_cpu = (tree_map(lambda t: t.cpu(), x) for x in (p_dev, o_dev))
+    host = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_CMP["seq"],
+                                  global_batch=TRAIN_CMP["batch"])).batch(0)
+    b_cpu = {k: torch.from_numpy(v) for k, v in host.items()}
+    b_dev = {k: t.to(dev) for k, t in b_cpu.items()}
+    seconds = {"init": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    with float64_mode():
+        p64 = tree_map(lambda t: t.double(), p_cpu)
+        l64, g64 = training.loss_and_grads(
+            build_model(cfg.with_(compute_dtype="float64")), p64, b_cpu)
+        l64 = float(l64)
+        n64 = float(training.global_norm(g64))
+    seconds["cpu_f64"] = time.perf_counter() - t0
+    runs = []
+    for dname in ("float32", "bfloat16"):
+        m = build_model(cfg.with_(compute_dtype=dname))
+        t0 = time.perf_counter()
+        lc, gc, nc, ac = _step_readings(m, p_cpu, o_cpu, b_cpu, tcfg)
+        seconds[f"cpu_{dname}"] = time.perf_counter() - t0
+        gc = tree_map(lambda t: t.to(dev), gc)      # compared on the card
+        t0 = time.perf_counter()
+        ld, gd, nd, ad = _step_readings(m, p_dev, o_dev, b_dev, tcfg)
+        torch.cuda.synchronize()
+        seconds[f"card_{dname}"] = time.perf_counter() - t0
+        # AdamW on the CPU from the card's gradients: the card's update.
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ax = training.adamw_update(
+                p_cpu, tree_map(lambda t: t.cpu(), gd), o_cpu, tcfg)[0]
+        update_err = max(float((a - b.to(a.device)).abs().max())
+                         for a, b in zip(flatten(ad), flatten(ax)))
+        del ax
+        r = {"compute_dtype": dname, "loss": [ld, lc, l64],
+             "grad_norm": [nd, nc, n64],
+             "loss_rel": abs(ld - lc) / abs(lc),
+             "grad_norm_rel": abs(nd - nc) / abs(nc),
+             "grad_rel_rms": _leaf_rel(gd, gc, dev),
+             "update_max_abs_err": update_err,
+             "params_after_rel_rms": _leaf_rel(ad, ac, dev)}
+        if dname == "bfloat16":
+            ref = {"loss_rel": abs(lc - l64) / abs(l64),
+                   "grad_norm_rel": abs(nc - n64) / abs(n64),
+                   "grad_rel_rms": _leaf_rel(gc, g64, dev)}
+            r["cpu_vs_f64"] = ref
+            r["grad_norm_ratio"] = r["grad_norm_rel"] / max(
+                ref["grad_norm_rel"], 1e-300)
+            own = float(training.global_norm(tree_map(lambda t: t.cpu(), gd)))
+            r["grad_norm_own_rel"] = abs(nd - own) / abs(own)
+            r["limits"] = {
+                "loss_rel": TRAIN_BF16_MULT * ref["loss_rel"],
+                "grad_norm_own_rel": TRAIN_F32_TOL["grad_norm"],
+                "grad_rel_rms": [TRAIN_BF16_MULT * x
+                                 for x in ref["grad_rel_rms"]]}
+            held = (r["loss_rel"] <= r["limits"]["loss_rel"]
+                    and r["grad_norm_own_rel"]
+                    <= r["limits"]["grad_norm_own_rel"]
+                    and all(x <= y for x, y in zip(
+                        r["grad_rel_rms"], r["limits"]["grad_rel_rms"])))
+        else:
+            r["limits"] = TRAIN_F32_TOL
+            held = not _train_breaks(r)
+            r["faults"] = {}
+            for fname, (target, make) in TRAIN_FAULTS.items():
+                with patched(attn_k, target, make):
+                    lf, gf = training.loss_and_grads(m, p_dev, b_dev)
+                fr = {"loss_rel": abs(float(lf) - lc) / abs(lc),
+                      "grad_norm_rel": abs(float(training.global_norm(gf))
+                                           - nc) / abs(nc),
+                      "grad_rel_rms": _leaf_rel(gf, gc, dev)}
+                fr["breaks"] = _train_breaks(fr)
+                r["faults"][fname] = fr
+                del gf
+        r["held"] = held and update_err <= TRAIN_UPDATE_TOL
+        seconds[f"held_{dname}"] = time.perf_counter() - t0
+        runs.append(r)
+        del gc, gd, ac, ad
+    row = {"phase": "train_compare", "layers": cfg.num_layers,
+           "params": sum(t.numel() for t in flatten(p_cpu)),
+           "update_tol": TRAIN_UPDATE_TOL, "runs": runs, "seconds": seconds}
+    emit(row)
+    for r in runs:
+        if not r["held"]:
+            raise AssertionError(f"train_compare {r['compute_dtype']}: "
+                                 f"outside the limits: {r}")
+        for fname, fr in r.get("faults", {}).items():
+            if not fr["breaks"]:
+                raise AssertionError(f"train_compare: the fault {fname} "
+                                     f"stays inside the f32 limits: {fr}")
+    return row
+
+
+def train_checkpoint(dev: str = "cuda") -> dict:
+    """At reduced width on the card, in a temporary directory: 4 straight
+    steps equal 2 steps, an async save, a restore and 2 more (CKPT_TOL);
+    the checkpoint restores in the CPU port to the card's state, exactly."""
+    cfg = reduced(get_config(TRAIN_ARCH))
+    model = build_model(cfg)
+    spec = model.param_specs()
+    params = init_params(spec, torch.Generator(dev).manual_seed(0),
+                         cfg.param_dtype, dev)
+    opt = init_params(training.opt_state_specs(spec, cfg),
+                      torch.Generator(dev).manual_seed(1),
+                      cfg.optstate_dtype, dev)
+    step = training.make_train_step(model, training.TrainConfig(
+        learning_rate=1e-3, warmup_steps=2, total_steps=50))
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                  global_batch=4))
+
+    def run(p, o, n, start=0):
+        for i in range(start, start + n):
+            p, o, _ = step(p, o, data.device_batch(i, dev))
+        return p, o
+
+    p4, _ = run(params, opt, 4)
+    p2, o2 = run(params, opt, 2)
+    base = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+    try:
+        ck = Checkpointer(os.path.join(base, "ckpt"), keep=2, async_save=True)
+        ck.save(2, {"params": p2, "opt": o2})
+        ck.wait()
+        restored, at = ck.restore({"params": p2, "opt": o2})
+        pr, _ = run(restored["params"], restored["opt"], 2, start=2)
+        worst = 0.0
+        for a, b in zip(flatten(p4), flatten(pr)):
+            np.testing.assert_allclose(b.cpu().numpy(), a.cpu().numpy(),
+                                       **CKPT_TOL)
+            worst = max(worst, float((a - b).abs().max()))
+        like = tree_map(lambda t: torch.empty_like(t, device="cpu"),
+                        {"params": p2, "opt": o2})
+        on_cpu, at_cpu = Checkpointer(os.path.join(base, "ckpt")).restore(like)
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(
+            flatten({"params": p2, "opt": o2}), flatten(on_cpu)))
+        files = sorted(os.listdir(os.path.join(base, "ckpt", "step_2")))
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    row = {"phase": "train_checkpoint", "restored_at": at,
+           "restart_max_abs_err": worst, "tol": CKPT_TOL,
+           "cpu_restore_at": at_cpu, "cpu_restore_equal": same,
+           "files": len(files)}
+    emit(row)
+    if at != 2 or at_cpu != 2 or not same:
+        raise AssertionError(f"train_checkpoint: {row}")
+    return row
+
+
+def train_phase(card: str) -> dict:
+    """The five parts of the train phase, timed against TRAIN_BOX_S."""
+    seconds = {}
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bwd = check_attention_bwd(gen)
+    seconds["kernels"] = time.perf_counter() - t0
+    emit({"phase": "kernels_attention_bwd", "card": card,
+          "tol": BWD_TOL, "lse_tol": LSE_TOL, **bwd})
+    torch.cuda.empty_cache()
+    runs = {}
+    for name, argv in TRAIN_RUNS:
+        t0 = time.perf_counter()
+        runs[name] = train_run(card, name, argv, TRAIN_PROFILE_AT[name])
+        seconds[f"run_{name}"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_compare()
+    seconds["compare"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_checkpoint()
+    seconds["checkpoint"] = time.perf_counter() - t0
+    total = sum(seconds.values())
+    emit({"phase": "train_seconds", "card": card, **seconds, "total": total,
+          "box_s": TRAIN_BOX_S, "within_box": total <= TRAIN_BOX_S,
+          "reduced": ["the card-vs-CPU step cut to 2 of 40 layers",
+                      "no full-width checkpoint (32.7 GB on the card "
+                      "host's 9p)"]})
+    return {"bwd": bwd, "runs": runs}
+
+
 # --------------------------- main --------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3853,7 +4488,6 @@ def main() -> int:
     staged = run_service("cuda", cfg_kw={
         "max_log_bytes": SERVICE_MAX_LOG_BYTES},
         on_part=staged_on_part, mark_at=FILES_SUBMITS, **service_kw)
-    staged_end = points["staged mixed"]["live"]
     torch.cuda.synchronize()
     staged["launches"] = dict(LAUNCHES)
     staged["wall_s"] = time.perf_counter() - t0
@@ -3969,7 +4603,7 @@ def main() -> int:
     recovery_replay_phase(card)
     seconds["recovery_replay"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    workers_phase(card, staged, staged_end, service_kw)
+    workers_phase(card, staged, staged_mark, service_kw)
     seconds["workers"] = time.perf_counter() - t0
     emit({"phase": "recovery_workers_seconds", **seconds})
 
@@ -4052,6 +4686,22 @@ def main() -> int:
           "runs": model_cmp})
     check_model(model_cmp)
 
+    # Train phase: K6's backward against its plain version, MiniCPM-2B
+    # trained at full width through launch.train.main, one step card vs
+    # CPU with the backward's faults, and a checkpoint restart.
+    trained = train_phase(card)
+    bwd_rep = trained["bwd"]["cases"][BWD_REPORTED]
+    bwd_err = {k: 0.0 for k in BWD_KERNELS}
+    of_kernel = {"flash_attention_bwd_prep": ("delta",),
+                 "flash_attention_bwd_dkv": ("dk", "dv"),
+                 "flash_attention_bwd_dq": ("dq",)}
+    for c in [*trained["bwd"]["cases"].values(),
+              *trained["bwd"]["edges"].values()]:
+        for k, names in of_kernel.items():
+            bwd_err[k] = max(bwd_err[k], *(c["errors"][n]["max_abs_err"]
+                                           for n in names))
+    train_launches = trained["runs"]["defaults"]["launches"]
+
     launches = {**staged["launches"],
                 **{k: pooled["launches"][k]
                    for k in ("probe_tier", "probe_store")},
@@ -4064,8 +4714,23 @@ def main() -> int:
          "bound_by": timing[k]["bound_by"],
          "library_ms": timing[k]["library_ms"],
          **({"launches_serve_moe": served_moe["launches"][k],
-             "launches_serve_hybrid": served_hybrid["launches"][k]}
-            if k == "flash_attention" else {})} for k in LAUNCHES]})
+             "launches_serve_hybrid": served_hybrid["launches"][k],
+             "launches_train": train_launches[k]}
+            if k == "flash_attention" else {})}
+        for k in LAUNCHES if k not in BWD_KERNELS] + [
+        {"name": k, "route": "cuda", "source": SOURCES[k][0],
+         "replaces": SOURCES[k][1], "launches": train_launches[k],
+         "launches_train_seq4096": trained["runs"]["seq4096"]["launches"][k],
+         "max_abs_err": bwd_err[k], "ms": bwd_rep["call_ms"][k],
+         "device_ms": bwd_rep["device_ms"][k],
+         "plain_ms": (bwd_rep["plain_prep_ms"]
+                      if k == "flash_attention_bwd_prep"
+                      else bwd_rep["plain_ms"]),
+         "bound_ms": bwd_rep[k]["bound_ms"],
+         "bound_by": bwd_rep[k]["bound_by"],
+         "library_ms": (None if k == "flash_attention_bwd_prep"
+                        else bwd_rep["library_ms"]),
+         "shape": BWD_REPORTED} for k in BWD_KERNELS]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

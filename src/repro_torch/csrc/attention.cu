@@ -22,6 +22,11 @@
 // head strides and a contiguous last dim, so a slice of rows of the KV
 // cache is read in place.
 //
+// Log-sum-exp for the backward: given a non-null lse ([B, H, Sq] f32,
+// contiguous), each kernel also writes every row's m + log l in the units
+// of the scores (scaled, softcapped), which attention_bwd.cu reads to
+// recompute p / l. The serving path passes null and writes nothing more.
+//
 // Both kernels skip key tiles that every query row of the block masks,
 // but only when each row keeps some key: then a skipped term is 0 exactly
 // (exp(-2e38 - m) with a real running max m, or a partial sum that a later
@@ -108,6 +113,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;         // [B, H, Sq], or null
   int32_t sq, sk, h, kv;
   Strides qs, ks, vs, os;
   int32_t causal, window;
@@ -228,6 +234,8 @@ flash_attention_kernel(const Args a) {
       const int d = lane + 32 * t;
       if (d < HD) o[qp * a.os.s + d] = from_f32<T>(acc[r][t] / denom);
     }
+    if (a.lse != nullptr && lane == 0)
+      a.lse[static_cast<int64_t>(blockIdx.y) * a.sq + qp] = m[r] + logf(l[r]);
   }
 }
 
@@ -536,6 +544,9 @@ flash_attention_kernel_mma(const Args a) {
       const float denom = fmaxf(lt, 1e-30f);
       const int64_t rg = r0 + warp * MT * 16 + mt * 16 + gr + 8 * hr;
       if (rg >= rows) continue;
+      if (a.lse != nullptr && gc == 0)    // m is raw without a softcap
+        a.lse[(static_cast<int64_t>(b) * a.h + kh * g + rg % g) * a.sq +
+              rg / g] = (capped ? m[mt][hr] : m[mt][hr] * a.scale) + logf(lt);
       bf16* orow = o + (rg / g) * a.os.s + (rg % g) * a.os.h + 2 * gc;
 #pragma unroll
       for (int d = 0; d < ND; ++d)
@@ -605,15 +616,17 @@ int launch(const Args& a, int is_bf16, int64_t batch, cudaStream_t s) {
 
 // q [B, Sq, H, hd], k and v [B, Sk, KV, hd], o [B, Sq, H, hd], all of one
 // dtype (bf16 when is_bf16, else f32), with the given batch, sequence and
-// head strides in elements. The wrapper checks shapes and sizes.
+// head strides in elements; lse [B, H, Sq] f32 or null. The wrapper checks
+// shapes and sizes.
 extern "C" int flash_attention(
-    const void* q, const void* k, const void* v, void* o, int64_t batch,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int64_t batch,
     int64_t sq, int64_t sk, int64_t h, int64_t kv, int64_t hd, int64_t q_sb,
     int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss,
     int64_t o_sh, int causal, int window, float softcap, float scale,
     int is_bf16, void* stream) {
-  const Args a{q, k, v, o,
+  const Args a{q, k, v, o, lse,
                static_cast<int32_t>(sq), static_cast<int32_t>(sk),
                static_cast<int32_t>(h), static_cast<int32_t>(kv),
                {q_sb, q_ss, q_sh}, {k_sb, k_ss, k_sh}, {v_sb, v_ss, v_sh},

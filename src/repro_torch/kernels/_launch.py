@@ -9,7 +9,9 @@ import torch
 # adds one (``count``) where it launches its kernel and nowhere else, so a
 # run that zeroes these first shows which kernels its path went through.
 LAUNCHES = {"merge_pair": 0, "bloom_build": 0, "bloom_probe": 0,
-            "probe_tier": 0, "probe_store": 0, "flash_attention": 0}
+            "probe_tier": 0, "probe_store": 0, "flash_attention": 0,
+            "flash_attention_bwd_prep": 0, "flash_attention_bwd_dkv": 0,
+            "flash_attention_bwd_dq": 0}
 _COUNT_LOCK = threading.Lock()
 
 

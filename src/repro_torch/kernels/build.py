@@ -35,8 +35,13 @@ SIGNATURES = {
     "probe_tier": [_P, _INT, _P, _I64, _P, _P, _P, _P],
     "probe_store": [_P, _INT, _P, _I64, _P, _P, _P, _P],
     "probe_floor": [_P, _I64, _P],
-    "flash_attention": [_P] * 4 + [_I64] * 18 + [_INT, _INT, _F32, _F32,
+    "flash_attention": [_P] * 5 + [_I64] * 18 + [_INT, _INT, _F32, _F32,
                                                  _INT, _P],
+    "flash_attention_bwd_prep": [_P] * 3 + [_I64] * 10 + [_INT, _P],
+    "flash_attention_bwd_dkv": [_P] * 8 + [_I64] * 18 + [_INT, _INT, _F32,
+                                                         _F32, _INT, _P],
+    "flash_attention_bwd_dq": [_P] * 7 + [_I64] * 18 + [_INT, _INT, _F32,
+                                                        _F32, _INT, _P],
 }
 
 

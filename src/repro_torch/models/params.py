@@ -7,7 +7,12 @@ the tree's order. The reference folds ``hash()`` of each leaf's path into
 its key, and Python salts string hashes per process, so its weights
 cannot be re-derived: weights are carried across from the reference with
 ``params_from_reference`` instead, which keeps the reference's names,
-nesting and stacked ``[n_super, ...]`` layout.
+nesting and stacked ``[n_super, ...]`` layout, and the optimizer state
+with ``opt_state_from_reference``.
+
+``flatten`` lists a tree's leaves in JAX's order (dict keys sorted, lists
+and tuples in order), which numbers the leaves of a checkpoint
+(``runtime/checkpoint.py``) as the reference numbers them.
 """
 from __future__ import annotations
 
@@ -46,6 +51,52 @@ def leaves(tree) -> list:
     return out
 
 
+def unstack(tree, n: int) -> list:
+    """``n`` trees, the i-th holding slice i of each leaf's first dim (one
+    ``unbind`` a leaf)."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, (list, tuple)):
+        parts = [unstack(v, n) for v in tree]
+        return [[p[i] for p in parts] for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def flatten(tree) -> list:
+    """The leaves of a tree of dicts, lists and tuples in JAX's flatten
+    order: dict keys sorted, lists and tuples in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in flatten(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in flatten(v)]
+    return [tree]
+
+
+def unflatten(like, leaves_in_order) -> object:
+    """A tree shaped as ``like`` whose leaves are ``leaves_in_order``,
+    taken in ``flatten``'s order."""
+    it = iter(leaves_in_order)
+
+    def build(t):
+        if isinstance(t, dict):
+            got = {k: build(t[k]) for k in sorted(t)}
+            return {k: got[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return [build(v) for v in t]
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
+def num_params(tree) -> int:
+    """Elements over the ``P`` leaves of a spec tree."""
+    return sum(int(np.prod(s.shape)) for s in leaves(tree))
+
+
 def init_params(tree, generator: torch.Generator,
                 default_dtype: str = "float32", device="cuda"):
     """Materialise a spec tree on ``device``: zeros, ones, or normal draws
@@ -76,3 +127,18 @@ def params_from_reference(tree, device="cpu"):
         return torch.from_numpy(np.array(a)).to(device)
 
     return tree_map(one, tree)
+
+
+def opt_state_from_reference(tree, device="cpu"):
+    """The reference's AdamW state (``{"m", "v", "step"}`` and, when params
+    are not f32, ``"master"``; numpy leaves) as torch tensors on
+    ``device``: ``m``, ``v`` and ``master`` as ``params_from_reference``
+    carries params, ``step`` as a 0-d int32 tensor."""
+    extra = set(tree) - {"m", "v", "step", "master"}
+    if extra or not {"m", "v", "step"} <= set(tree):
+        raise ValueError(f"not an AdamW state: keys {sorted(tree)}")
+    out = {k: params_from_reference(tree[k], device)
+           for k in tree if k != "step"}
+    out["step"] = torch.tensor(int(np.asarray(tree["step"])),
+                               dtype=torch.int32, device=device)
+    return out

@@ -1,8 +1,8 @@
 """CausalLM for the dense, moe and hybrid families, as in the reference
 (``repro.models.transformer``): the same param and cache trees (per-slot
 params stacked ``[n_super, ...]``), with the layer stack run as a Python
-loop over the stacked params (no ``scan``, no ``remat``: there is no
-backward pass here, and no mesh to constrain to). A moe slot is an
+loop over the stacked params (no ``scan``, and no mesh to constrain to).
+A moe slot is an
 attention block followed by ``moe_block`` on one shard, plus the dense
 residual FFN where ``moe_dense_ff`` is set. The hybrid family (Zamba2) is
 groups of ``attn_every`` Mamba2 slots, each group followed by one
@@ -14,18 +14,27 @@ Attention writes its K and V into the cache in place; ``mamba2_block``
 returns a new state, which ``_apply_slot`` copies into the stacked
 cache's views, or prefill state would never reach decode.
 
+Training differentiates ``apply`` (no cache, so no write in place on the
+autograd path) on the params as they are held, casting each weight to the
+compute dtype per call as the reference does (``compute_params`` is for
+serving). ``cfg.remat == "full"`` runs each super-block under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with
+``nothing_saveable`` around its scan body): its activations are
+recomputed in the backward, so K6's forward runs twice a layer per step.
+
 The other families (ssm, i.e. xLSTM, encdec, vlm) are not ported yet
 (ROADMAP Queue 1, "Rest of the serving model stack").
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .attention import attention_block, attn_spec, padded_heads
 from .layers import (P, embed, embed_spec, mlp, mlp_spec, rmsnorm,
                      rmsnorm_spec, softcap, unembed)
 from .moe import moe_block, moe_spec
-from .params import tree_map
+from .params import tree_map, unstack
 from .ssm import mamba2_block, mamba2_cache_spec, mamba2_spec
 
 # Leaves that the reference's forward reads in f32 whatever the compute
@@ -164,23 +173,47 @@ class CausalLM:
         return walk(params)
 
     # -- forward ------------------------------------------------------------------
-    def _run_blocks(self, params, x, positions, pos0: int, cache):
-        """Each group's slots, then (hybrid) the shared attention block on
-        ``params["shared_attn"]`` with the group's own KV cache. Every
-        slot writes its cache views in place."""
-        def view(tree, li):
+    def _super_block(self, params, blocks, x, positions, pos0: int, cache,
+                     li: int):
+        """Super-block ``li``: its group's slots on ``blocks`` (one tree a
+        slot, this layer's params), then (hybrid) the shared attention
+        block on ``params["shared_attn"]`` with the group's own KV cache.
+        Every slot writes its cache views in place."""
+        def view(tree):
             return {n: t[li] for n, t in tree.items()}
 
+        for i, slot in enumerate(self.slots):
+            c = None if cache is None else view(cache["blocks"][i])
+            x, _ = _apply_slot(self.cfg, slot, blocks[i], x, positions, pos0,
+                               c)
+        if self.shared_attn:
+            c = None if cache is None else view(cache["shared_attn"])
+            x, _ = _apply_slot(self.cfg, "attn:global", params["shared_attn"],
+                               x, positions, pos0, c)
+        return x
+
+    def _run_blocks(self, params, x, positions, pos0: int, cache):
+        """The super-blocks in order; with a gradient to take and
+        ``cfg.remat == "full"``, each one under ``torch.utils.checkpoint``.
+        The stacked params are split into layers by one ``unbind`` a leaf:
+        its backward stacks the layers' gradients once, where indexing
+        each layer would add a zero-filled [n_super, ...] gradient per
+        layer."""
+        remat = (cache is None and torch.is_grad_enabled()
+                 and self.cfg.remat != "none")
+        if remat and self.cfg.remat != "full":
+            raise NotImplementedError(
+                f"remat {self.cfg.remat!r} (save the matmuls' outputs) is not "
+                f"ported; 'full' and 'none' are (ROADMAP Queue 1 item 4)")
+        layers = unstack(params["blocks"], self.n_super)
         for li in range(self.n_super):
-            for i, slot in enumerate(self.slots):
-                p = tree_map(lambda t: t[li], params["blocks"][i])
-                c = None if cache is None else view(cache["blocks"][i], li)
-                x, _ = _apply_slot(self.cfg, slot, p, x, positions, pos0, c)
-            if self.shared_attn:
-                c = None if cache is None else view(cache["shared_attn"], li)
-                x, _ = _apply_slot(self.cfg, "attn:global",
-                                   params["shared_attn"], x, positions, pos0,
-                                   c)
+            if remat:
+                x = checkpoint(self._super_block, params, layers[li], x,
+                               positions, pos0, None, li, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = self._super_block(params, layers[li], x, positions, pos0,
+                                      cache, li)
         return x
 
     def _logits(self, params, x):
@@ -197,8 +230,11 @@ class CausalLM:
     def _positions(self, b: int, s: int, pos0: int, device):
         return (pos0 + torch.arange(s, device=device))[None, :].expand(b, s)
 
-    def apply(self, params, tokens):
-        """Teacher-forcing forward: tokens [B,S] -> logits [B,S,V]."""
+    def apply(self, params, tokens, frontend_embeds=None):
+        """Teacher-forcing forward: tokens [B,S] -> logits [B,S,V]. As in
+        the reference, ``frontend_embeds`` is read only by a config with a
+        frontend, and the one such decoder family (vlm) is not ported
+        (``block_slots`` refuses it), so it is not read here."""
         x = embed(params["embed"], tokens,
                   getattr(torch, self.cfg.compute_dtype))
         b, s, _ = x.shape

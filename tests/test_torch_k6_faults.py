@@ -1,7 +1,9 @@
-"""The faults of ``tools/k6_faults.py``, which set chip_smoke.py's bf16
-relative-RMS limit for K6 on the card, still go into the tensor-core
-kernel of ``src/repro_torch/csrc/attention.cu``: each of their edits
-matches the source exactly once."""
+"""The faults of ``tools/k6_faults.py``, which set chip_smoke.py's limits
+for K6 on the card, still go into the kernels they are meant for: the
+tensor-core and the CUDA-core kernels of
+``src/repro_torch/csrc/attention.cu`` and the backward's of
+``attention_bwd.cu``; each of their edits matches its source exactly
+once."""
 import importlib.util
 from pathlib import Path
 
@@ -26,3 +28,17 @@ def test_fault_applies_to_the_kernel_source(name):
 def test_a_fault_that_no_longer_matches_raises():
     with pytest.raises(ValueError):
         k6_faults.apply_fault(SOURCE.replace("corr", "c0rr"), "corr_one")
+
+
+CSRC = ROOT / "src" / "repro_torch" / "csrc"
+
+
+@pytest.mark.parametrize("name", sorted([*k6_faults.F32_FAULTS,
+                                         *k6_faults.BWD_FAULTS]))
+def test_f32_and_backward_faults_apply_to_their_source(name):
+    file, edits = k6_faults.edits_of(name)
+    source = (CSRC / file).read_text()
+    faulty = k6_faults.apply_fault(source, name)
+    assert faulty != source
+    for _, new in edits:
+        assert new in faulty

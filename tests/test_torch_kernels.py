@@ -320,7 +320,8 @@ def test_wrappers_take_the_plain_version_only_on_cpu(tb):
     assert LAUNCHES == before                  # the plain versions ran
     assert tb.launches is LAUNCHES and set(LAUNCHES) == {
         "merge_pair", "bloom_build", "bloom_probe", "probe_tier",
-        "probe_store", "flash_attention"}
+        "probe_store", "flash_attention", "flash_attention_bwd_prep",
+        "flash_attention_bwd_dkv", "flash_attention_bwd_dq"}
     m = torch.empty(5, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         merge_k.merge_pair(m, m, m, m)

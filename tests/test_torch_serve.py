@@ -1,6 +1,7 @@
 """The serving path on the CPU against the reference: the model (reduced
 Yi-6B, reduced Gemma-2-27B with local/global layers, window 32 and both
-softcaps, reduced Yi-6B with padded heads and a padded vocab, the moe
+softcaps, reduced Yi-6B with padded heads and a padded vocab, reduced
+MiniCPM-2B and Minitron-4B, the moe
 family: reduced Granite-3.0-1B-A400M and reduced Arctic-480B with its
 dense residual FFN, and the hybrid family: reduced Zamba2-2.7B, two groups
 of three Mamba2 layers, each followed by the shared attention block) with
@@ -55,7 +56,8 @@ PADDED = {"head_pad_to": 8, "vocab_size": 250}
 @pytest.fixture(scope="module", params=["yi-6b", "gemma2-27b",
                                         "yi-6b:padded",
                                         "granite-moe-1b-a400m",
-                                        "arctic-480b", "zamba2-2.7b"])
+                                        "arctic-480b", "zamba2-2.7b",
+                                        "minicpm-2b", "minitron-4b"])
 def pair(request):
     """(reference model, its params, port model, the same params)."""
     arch, _, variant = request.param.partition(":")
